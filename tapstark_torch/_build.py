@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import time
 
-from tapstark.field.constants import MU, P
+from .field.constants import MU, P
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -46,13 +46,38 @@ def sources() -> list[str]:
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+    ptr, i32, u32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_longlong
     lib.tapstark_lde_constants.argtypes = [ptr]
     lib.tapstark_lde_constants.restype = None
     lib.tapstark_lde_inverse.argtypes = [ptr, ptr, ptr, i32, i32, u32, ptr]
     lib.tapstark_lde_inverse.restype = i32
     lib.tapstark_lde_forward.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
     lib.tapstark_lde_forward.restype = i32
+    lib.tapstark_sha256_constants.argtypes = [ptr]
+    lib.tapstark_sha256_constants.restype = i32
+    lib.tapstark_sha256_compress.argtypes = [
+        ptr, i64, i64, i64, ptr, i64, ptr, i32, i32, ptr, ptr,
+    ]
+    lib.tapstark_sha256_compress.restype = i32
+    lib.tapstark_tapbranch.argtypes = [ptr, i64, i64, ptr, i64, i64, i64, ptr, ptr]
+    lib.tapstark_tapbranch.restype = i32
+
+
+def _check_constants(lib: ctypes.CDLL) -> None:
+    """The kernels' baked constants against the host's."""
+    from .hashes.sha256_device import _K, _tapbranch_block2_round_consts, tag_midstate_words
+
+    consts = (ctypes.c_uint32 * 2)()
+    lib.tapstark_lde_constants(consts)
+    if (consts[0], consts[1]) != (P, MU):
+        raise RuntimeError(f"kernel field constants {tuple(consts)} != (P, MU)")
+    sha = (ctypes.c_uint32 * 136)()
+    err = lib.tapstark_sha256_constants(sha)
+    if err != 0:
+        raise RuntimeError(f"reading the SHA-256 kernel constants: CUDA error {err}")
+    want = [*tag_midstate_words(b"TapBranch"), *_tapbranch_block2_round_consts(), *_K]
+    if list(sha) != [int(x) for x in want]:
+        raise RuntimeError("SHA-256 kernel constants differ from the host's")
 
 
 def load_library() -> ctypes.CDLL:
@@ -80,10 +105,7 @@ def load_library() -> ctypes.CDLL:
         os.replace(tmp, so_path)
     lib = ctypes.CDLL(so_path)
     _bind(lib)
-    consts = (ctypes.c_uint32 * 2)()
-    lib.tapstark_lde_constants(consts)
-    if (consts[0], consts[1]) != (P, MU):
-        raise RuntimeError(f"kernel field constants {tuple(consts)} != (P, MU)")
+    _check_constants(lib)
     build_info.update(
         path=so_path, sources=srcs, built=built, seconds=time.perf_counter() - t0
     )

@@ -8,9 +8,8 @@ from __future__ import annotations
 
 import torch
 
-from tapstark.air import AirBuilder, TwoRowMatrixView
-from tapstark.field.scalar import EF4, F
-
+from ..air import AirBuilder, TwoRowMatrixView
+from ..field.scalar import EF4, F
 from ..field.device import (
     ef_add,
     ef_const,

@@ -1,0 +1,207 @@
+"""Blake3 compression-function duplex Fiat-Shamir challenger.
+
+Fills the role of the reference BfChallenger
+(tap-stark's basic/src/challenger/mod.rs) with a transcript construction
+redesigned for in-script replay cost (v2):
+
+- The reference duplexes by blake3-hashing its whole 64-byte state, giving an
+  8-word absorb rate: every 8 observed words cost one compression, and its
+  sample_bits consumes a full extension sample (4 words). Replaying that
+  transcript in Bitcoin Script costs one ~100 KB blake3 gadget per
+  compression, so absorb rate directly prices the challenger segment.
+- v2 builds the duplex directly on the blake3 compression function
+  f(cv, block, t, b, flags) (hashes/blake3.py, from-spec):
+    * state = 8-word chaining value, initialised to the blake3 IV;
+    * absorb rate = 16 words: cv' = f(cv, block16, 0, 4*len, FLAGS) with
+      partial blocks zero-padded and length-bound via the b input — HALVING
+      the compression count of every observe stream;
+    * squeeze: the same step on the pending (possibly empty) block; the 8
+      output words are the new cv, popped from the END (h7 first);
+    * sample_bits(b) pops ONE raw word and takes its top b bits — 4x fewer
+      sampled words than the reference's full-extension-sample semantics
+      (mod.rs:341-348), uniform because the word is uniform on 2^32.
+  FLAGS = CHUNK_START|CHUNK_END|ROOT for every step; domain separation
+  between steps comes from chaining + the b length binding.
+- observe(word) clears the output buffer (like the reference), so samples
+  always see a post-absorb squeeze.
+- PoW grind: witness w such that after observe(w), sample_bits(bits) == 0.
+  The reference searches with rayon find_any (nondeterministic winner); this
+  implementation deterministically returns the SMALLEST witness, searched as
+  a vectorized blake3 batch.
+
+The transcript is a host-side state machine; the grind is the only heavy
+part and runs as a batched numpy kernel on the host.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..field.constants import P
+from ..field.scalar import EF4, F
+from ..hashes.blake3 import CHUNK_END, CHUNK_START, IV, ROOT, compress, compress_batch
+
+RATE = 16  # absorb rate (words per compression block)
+OUT_WORDS = 8  # squeeze rate (output words per compression)
+FLAGS = CHUNK_START | CHUNK_END | ROOT
+
+
+class Blake3Compression:
+    """The real duplex step: blake3 compression, first 8 output words."""
+
+    def compress(self, cv: list[int], block: list[int], block_len: int) -> list[int]:
+        return compress(cv, block, 0, block_len, FLAGS)[:8]
+
+
+class TestPermutation:
+    """Deterministic fake duplex step for fast protocol tests (the role of
+    the reference's only fake backend, fri/tests/fri.rs:34-48)."""
+
+    def compress(self, cv: list[int], block: list[int], block_len: int) -> list[int]:
+        mixed = [
+            (cv[i] ^ block[i]) + block[i + 8] + block_len + i & 0xFFFFFFFF
+            for i in range(8)
+        ]
+        return list(reversed(mixed))
+
+
+class BfChallenger:
+    """field='ext' samples EF4 (the protocol's Challenge field); field='base'
+    samples BabyBear."""
+
+    def __init__(self, field: str = "ext", permutation=None):
+        assert field in ("base", "ext")
+        self.field = field
+        self.compression = permutation or Blake3Compression()
+        self.cv: list[int] = list(IV)
+        self.input_buffer: list[int] = []
+        self.output_buffer: list[int] = []
+        # Records for the Bitcoin-script challenger replay (DSL layer):
+        # (block16, block_len) per compression; cv chains from IV.
+        self.compression_records: list[tuple[list[int], int]] = []
+        self.sample_input: list[list[int]] = []
+        self.sample_output: list[object] = []
+        self.grind_bits: int | None = None
+        self.grind_output: int | None = None
+        # Operation log for the challenger-consistency script replay
+        # (the DSL layer's equivalent of the reference's BfChallengerExpr).
+        self.op_log: list[tuple] = []
+
+    # -- core duplex -------------------------------------------------------
+    def _compress(self) -> None:
+        assert len(self.input_buffer) <= RATE
+        block = self.input_buffer + [0] * (RATE - len(self.input_buffer))
+        block_len = 4 * len(self.input_buffer)
+        self.compression_records.append((list(block), block_len))
+        self.cv = self.compression.compress(self.cv, block, block_len)
+        self.input_buffer.clear()
+        self.output_buffer = list(self.cv)
+
+    def observe(self, word: int) -> None:
+        self.op_log.append(("observe", int(word) & 0xFFFFFFFF))
+        self.output_buffer.clear()
+        self.input_buffer.append(int(word) & 0xFFFFFFFF)
+        if len(self.input_buffer) == RATE:
+            self._compress()
+
+    def observe_u32s(self, words) -> None:
+        for w in words:
+            self.observe(w)
+
+    def observe_commitment(self, roots: list[list[int]]) -> None:
+        """Observe a TapTreeMmcs commitment (the per-repetition taptree
+        roots, Vec<[U32; 8]>) as ONE 8-word binding digest: blake3 over the
+        roots' LE-word byte serialization.
+
+        The reference absorbs every repetition root word-by-word
+        (basic/src/challenger/mod.rs observe of the commitment Vec), which
+        at 28 query repetitions costs 224 absorbed words (~14 in-script
+        compressions) PER commit round and dominated the challenger
+        segment's script size. The digest binds the same data collision-
+        resistantly for half a compression per round. Deployment model is
+        unchanged: the roots — and therefore their digest — are
+        covenant-fixed constants of the BitVM2 script set (deliberate
+        protocol redesign v3; golden vectors re-frozen, tests/test_golden)."""
+        from ..hashes.blake3 import blake3
+
+        data = b"".join(
+            int(w).to_bytes(4, "little") for root in roots for w in root
+        )
+        digest = blake3(data)
+        self.observe_u32s(
+            int.from_bytes(digest[4 * i : 4 * i + 4], "little") for i in range(8)
+        )
+
+    def _pop(self) -> int:
+        if self.input_buffer or not self.output_buffer:
+            self._compress()
+        return self.output_buffer.pop()
+
+    # -- sampling ----------------------------------------------------------
+    def sample(self):
+        words = []
+        if self.field == "base":
+            w = self._pop()
+            words.append(w)
+            res = F(w % P)
+        else:
+            coeffs = []
+            for _ in range(4):
+                w = self._pop()
+                words.append(w)
+                coeffs.append(w % P)
+            res = EF4(coeffs)
+        self.sample_input.append(words)
+        self.sample_output.append(res)
+        self.op_log.append(("sample", self.field, words, res))
+        return res
+
+    def sample_bits(self, bits: int) -> int:
+        """Top `bits` bits of ONE raw squeezed word (uniform on 2^bits)."""
+        assert 0 < bits < 32
+        w = self._pop()
+        result = w >> (32 - bits)
+        self.op_log.append(("sample_bits", bits, w, result))
+        return result
+
+    # -- proof of work -----------------------------------------------------
+    def check_witness(self, bits: int, witness: int) -> bool:
+        self.observe(witness)
+        return self.sample_bits(bits) == 0
+
+    def _grind_batch_ok(self, ws, bits: int, xp=np):
+        """Vectorized check over candidate witnesses against the current
+        (cv, pending-input) state. observe(w); sample_bits(bits) is always
+        exactly one compression of block = pending + [w] + zero padding with
+        block_len 4*(len(pending)+1) — whether w completes the block (the
+        absorb compression feeds the output buffer) or the squeeze flushes
+        the partial block. The first popped word is h7."""
+        shape = ws.shape
+        pend = self.input_buffer
+        blocks = [xp.full(shape, p, xp.uint32) for p in pend]
+        blocks += [xp.asarray(ws, dtype=xp.uint32)]
+        blocks += [xp.zeros(shape, xp.uint32)] * (RATE - 1 - len(pend))
+        cv = [xp.full(shape, w, xp.uint32) for w in self.cv]
+        out = compress_batch(xp, blocks, block_len=4 * (len(pend) + 1), cv=cv)
+        return (out[7] >> xp.uint32(32 - bits)) == 0
+
+    def grind(self, bits: int, batch: int = 1 << 14) -> int:
+        """Deterministic: returns the smallest valid witness and advances the
+        transcript exactly like check_witness on it."""
+        start = 0
+        witness = None
+        while start < 1 << 32:
+            ws = np.arange(start, min(start + batch, 1 << 32), dtype=np.uint64).astype(
+                np.uint32
+            )
+            idx = np.flatnonzero(self._grind_batch_ok(ws, bits))
+            if idx.size:
+                witness = int(ws[idx[0]])
+                break
+            start += batch
+        if witness is None:
+            raise RuntimeError("failed to find grind witness")
+        assert self.check_witness(bits, witness)
+        self.grind_bits = bits
+        self.grind_output = self.op_log[-1][3]
+        return witness

@@ -1,0 +1,234 @@
+"""Taptree commit hashing where the matrices' tensors live (the port of
+`tapstark.commit.device_commit`): leaf-tail construction and SHA-256.
+
+- every leaf script of a shard is head || tail(i) || NOP-pad to one fixed
+  length, so the SHA-256 midstate through the multi-KB head is ONE host
+  computation per (repetition, shard) and only the 1-2 tail blocks hash
+  per leaf;
+- the tail bytes (minimal-CScriptNum value pushes + FROMALTSTACK/
+  EQUALVERIFY pairs + index push + OP_1) are DATA-DEPENDENT in length, so
+  each slot's bytes are scattered at cumsum offsets — byte-exact with
+  script.builder.push_int;
+- tails are repetition-independent: the suffix words are built once and
+  every repetition's tapleaf compressions run from its own head midstate
+  (`compress_wm`, K5's counterpart);
+- TapBranch levels hash in natural node order, one `tapbranch_wm` launch
+  per level (K6's counterpart); only the root and the levels >= the cutoff
+  come to the host (the sparse layout of native.tcs_commit_sparse_native,
+  so openings reuse the host leaf-block rebuild).
+
+On a CUDA tensor the hashing runs on the card's kernels, on a CPU tensor
+through their plain versions. The suffix builder is plain torch on both.
+
+Reference anchor: the num_queries-cloned tree commit this re-architects is
+tap-stark's basic/src/tcs/mod.rs:197-292.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..field.device import from_mont
+from ..hashes.sha256 import compact_size
+from ..hashes.sha256_device import compress_wm, tag_midstate_words, tapbranch_wm
+from ..script import opcodes as op
+
+_OP_FROMALT = op.OP_FROMALTSTACK
+_OP_EQV = op.OP_EQUALVERIFY
+_OP_1 = op.OP_1
+_OP_NOP = op.OP_NOP
+
+# bytes of one tail slot: push opcode, up to 4 CScriptNum data bytes,
+# FROMALTSTACK, EQUALVERIFY and, on the index slot, OP_1
+_SLOT_BYTES = 8
+
+
+def _pack_words_np(bytes_arr: np.ndarray) -> np.ndarray:
+    """(..., 4*W) uint8 -> (..., W) uint32 big-endian words."""
+    b = bytes_arr.astype(np.uint32)
+    return (
+        (b[..., 0::4] << np.uint32(24))
+        | (b[..., 1::4] << np.uint32(16))
+        | (b[..., 2::4] << np.uint32(8))
+        | b[..., 3::4]
+    )
+
+
+class ShardSuffixPlan:
+    """Host-side layout plan for one shard's tapleaf hashing: where the tail
+    starts inside the SHA stream and the constant padding."""
+
+    def __init__(self, head_len: int, fixed_len: int, leaf_version: int = 0xC0):
+        self.head_len = head_len
+        self.fixed_len = fixed_len
+        cs = compact_size(fixed_len)
+        self.pre_script = bytes([leaf_version]) + cs
+        # bytes before the tail in the full tagged-hash stream
+        before = 64 + len(self.pre_script) + head_len
+        self.full_blocks = before // 64
+        self.rem_len = before % 64
+        self.tail_span = fixed_len - head_len
+        total_msg = 64 + len(self.pre_script) + fixed_len
+        suf_payload = self.rem_len + self.tail_span + 9
+        self.n_suffix_blocks = -(-suf_payload // 64)
+        suf_bytes = self.n_suffix_blocks * 64
+        pad = np.zeros(suf_bytes, dtype=np.uint8)
+        pe = self.rem_len + self.tail_span
+        pad[pe] = 0x80
+        bitlen = total_msg * 8
+        pad[suf_bytes - 8 :] = np.frombuffer(
+            int(bitlen).to_bytes(8, "big"), dtype=np.uint8
+        )
+        self.pad_words = _pack_words_np(pad)
+        self.suf_words = suf_bytes // 4
+
+    def head_midstates_batch(self, heads: list[bytes]):
+        """All repetitions at once: (R, 8) SHA midstates after every full
+        block through each head (host SHA-NI: a few KB x R messages), plus
+        (R, suf_words) leftover head bytes packed as zero-padded suffix
+        words."""
+        r = len(heads)
+        msgs = [self.pre_script + h for h in heads]
+        full = (len(msgs[0]) + 64) // 64 * 64 - 64
+        assert all(len(m) == len(msgs[0]) for m in msgs)
+        tag_state = tag_midstate_words(b"TapLeaf")
+        from .. import native
+
+        if full:
+            states = native.sha256_midstates_native([m[:full] for m in msgs], tag_state)
+        else:
+            states = np.broadcast_to(tag_state, (r, 8))
+        rems = np.zeros((r, self.suf_words * 4), dtype=np.uint8)
+        for i, m in enumerate(msgs):
+            rem = m[full:]
+            assert len(rem) == self.rem_len
+            rems[i, : len(rem)] = np.frombuffer(rem, dtype=np.uint8)
+        return np.ascontiguousarray(states), _pack_words_np(rems)
+
+
+def padding_matrix_dev(matrices) -> torch.Tensor:
+    """Twin of tcs.padding_matrix_np over the matrices' `dev` tensors
+    (Montgomery int32): (N, K, L) canonical int32 where they live."""
+    largest_first = sorted(matrices, key=lambda m: -m.height)
+    max_h = largest_first[0].height
+    cols = []
+    for m in largest_first:
+        v = from_mont(m.dev)
+        if not m.ext:
+            v = v[..., None]
+        rep = max_h // v.shape[0]
+        cols.append(v.repeat_interleave(rep, dim=0) if rep > 1 else v)
+    return torch.cat(cols, dim=1)
+
+
+def build_tail_suffix_words(
+    values_shard: torch.Tensor, plan: ShardSuffixPlan, base_index: int = 0
+) -> torch.Tensor:
+    """values_shard (N, K, L) canonical int32 -> WORD-MAJOR (suf_words, N)
+    int32: the repetition-independent part of each leaf's suffix blocks
+    (rem region zeroed, SHA padding included), leaf n committing index
+    base_index + n.
+
+    Everything is slot-major (S, N), so the cumsum runs across slots. Each
+    slot (values reversed, limbs in order, then the index) is at most 8
+    bytes; one scatter along the byte axis places every slot's bytes at its
+    cumsum offset in an OP_NOP-filled tail, and the bytes pack into
+    big-endian words."""
+    dev = values_shard.device
+    n, k, l = values_shard.shape
+    slot_vals = values_shard.flip(1).reshape(n, k * l).T.to(torch.int32)
+    idx = base_index + torch.arange(n, dtype=torch.int32, device=dev)
+    v = torch.cat([slot_vals, idx[None, :]])  # (S, n); the last slot is the index
+    s = v.shape[0]
+    zero = v == 0
+    small = (v >= 1) & (v <= 16)
+    ndata = 1 + (v >= 0x80).int() + (v >= 0x8000).int() + (v >= 0x800000).int()
+    enc = torch.where(zero | small, 1, 1 + ndata)
+    first = torch.where(zero, 0, torch.where(small, _OP_1 - 1 + v, ndata))
+    extra = torch.full((s, 1), 2, dtype=torch.int32, device=dev)
+    extra[-1] = 3  # FROMALT + EQV (+ OP_1 on the index slot)
+    slot_len = enc + extra
+    starts = torch.cumsum(slot_len, dim=0, dtype=torch.int32) - slot_len  # (S, n)
+
+    # byte p of every slot: push opcode, data bytes (v >> 8(p-1)), FROMALT,
+    # EQV, OP_1; positions past the slot go to a junk row
+    p = torch.arange(_SLOT_BYTES, dtype=torch.int32, device=dev)[:, None]  # (8, 1)
+    shift = (8 * (p - 1)).clamp(0, 24)
+    e = enc[:, None]  # (S, 1, n)
+    byte = torch.where(
+        p == 0,
+        first[:, None],
+        torch.where(
+            p < e,
+            (v[:, None] >> shift) & 0xFF,
+            torch.where(p == e, _OP_FROMALT, torch.where(p == e + 1, _OP_EQV, _OP_1)),
+        ),
+    )  # (S, 8, n)
+    suf_bytes = plan.suf_words * 4
+    pos = torch.where(p < slot_len[:, None], plan.rem_len + starts[:, None] + p, suf_bytes)
+    buf = torch.zeros((suf_bytes + 1, n), dtype=torch.uint8, device=dev)
+    buf[plan.rem_len : plan.rem_len + plan.tail_span] = _OP_NOP
+    buf.scatter_(0, pos.reshape(s * _SLOT_BYTES, n).long(), byte.reshape(s * _SLOT_BYTES, n).to(torch.uint8))
+    b = buf[:suf_bytes].view(plan.suf_words, 4, n).int()
+    pad = torch.from_numpy(plan.pad_words.view(np.int32).copy()).to(dev)
+    return (b[:, 0] << 24) | (b[:, 1] << 16) | (b[:, 2] << 8) | b[:, 3] | pad[:, None]
+
+
+def shard_trees_rep_group(
+    suffix_words: torch.Tensor, midstates: np.ndarray, rem_words: np.ndarray, cutoff: int
+):
+    """A group of repetitions of one shard: suffix (W, N) word-major where
+    the tree is hashed, midstates (R, 8) and rem_words (R, W) uint32 on the
+    host. Returns (roots (R, 8), uppers (R, T, 8)) int32 digest words on
+    suffix_words' device: uppers concatenates levels l in [cutoff, depth)
+    (level l has N >> l nodes) in natural node order along T."""
+    dev = suffix_words.device
+    n = suffix_words.shape[1]
+    if n & (n - 1):
+        raise ValueError(f"shard_trees_rep_group: {n} leaves is not a power of two")
+    mids = torch.from_numpy(np.ascontiguousarray(midstates.T).view(np.int32)).to(dev)
+    rem = torch.from_numpy(np.ascontiguousarray(rem_words.T).view(np.int32)).to(dev)
+    level = compress_wm(mids, suffix_words, rem)  # (8, R, N) leaf digests
+    r = level.shape[1]
+    depth = max((n - 1).bit_length(), 0)
+    upper = []
+    for l in range(depth):
+        children = level.view(8, -1, 2)  # siblings 2i, 2i+1 of every repetition
+        level = tapbranch_wm(children[:, :, 0], children[:, :, 1]).view(8, r, -1)
+        if cutoff <= l + 1 < depth:
+            upper.append(level)
+    flat = torch.cat(upper, dim=2) if upper else level.new_empty((8, r, 0))
+    return level[:, :, 0].T, flat.permute(1, 2, 0)
+
+
+def roots_to_bytes(roots_np: np.ndarray) -> list[bytes]:
+    """(R, 8) uint32 root words -> R x 32-byte big-endian root hashes."""
+    return [
+        np.ascontiguousarray(roots_np[r].astype(">u4")).tobytes()
+        for r in range(roots_np.shape[0])
+    ]
+
+
+def fetch_trees(groups: list, n: int, cutoff: int) -> list:
+    """[(roots, uppers) of shard_trees_rep_group] -> per group, per
+    repetition: (root bytes, [(n >> l, 32) uint8 arrays for l in
+    [cutoff, depth)]), the upper levels SparseNativeTaptree reads. One
+    device-to-host copy for all groups."""
+    parts = [t.reshape(-1) for pair in groups for t in pair]
+    host = torch.cat(parts).cpu().numpy().view(np.uint32)
+    pieces = np.split(host, np.cumsum([p.numel() for p in parts])[:-1])
+    depth = max((n - 1).bit_length(), 0)
+    sizes = [n >> l for l in range(cutoff, depth)]
+    out = []
+    for roots_w, uppers_w in zip(pieces[0::2], pieces[1::2]):
+        roots = roots_to_bytes(roots_w.reshape(-1, 8))
+        uppers = uppers_w.reshape(len(roots), -1, 8).astype(">u4").view(np.uint8)
+        offs = np.cumsum([0] + sizes)
+        out.append(
+            [
+                (root, [uppers[j, a:b].reshape(-1, 32) for a, b in zip(offs[:-1], offs[1:])])
+                for j, root in enumerate(roots)
+            ]
+        )
+    return out

@@ -17,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tapstark.field.constants import EXT_W, MU, P, R2_MOD_P, R_MOD_P, ROOT4
+from ..field.constants import EXT_W, MU, P, R2_MOD_P, R_MOD_P, ROOT4
 
 _M32 = 0xFFFFFFFF
 

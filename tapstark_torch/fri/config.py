@@ -4,7 +4,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-from tapstark.commit.mmcs import TapTreeMmcs
+from ..commit.mmcs import TapTreeMmcs
 
 
 @dataclass

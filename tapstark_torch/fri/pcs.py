@@ -2,7 +2,8 @@
 `tapstark.fri.pcs`; reference fri/src/two_adic_pcs.rs).
 
 - commit: per-matrix coset LDE with shift = generator / domain.shift, rows
-  bit-reversed, canonical host copies committed by the shared TapTreeMmcs;
+  bit-reversed, committed by TapTreeMmcs from the LDE tensors (trees hash
+  where they live);
 - open: batch quotient reduction sum_i alpha^i (p_i(X) - y_i) / (X - z)
   with barycentric ys, alpha-power offsets and precomputed inverse
   denominators, one reduced polynomial per height, then FRI;
@@ -20,13 +21,12 @@ from typing import Any
 import numpy as np
 import torch
 
-from tapstark.challenger import BfChallenger
-from tapstark.commit.mmcs import TapTreeMmcs
-from tapstark.commit.tcs import FMatrix
-from tapstark.field.constants import P
-from tapstark.field.scalar import EF4, F
-from tapstark.utils import log2_strict, reverse_bits_len
-
+from ..challenger import BfChallenger
+from ..commit.mmcs import TapTreeMmcs
+from ..commit.tcs import FMatrix
+from ..field.constants import P
+from ..field.scalar import EF4, F
+from ..utils import log2_strict, reverse_bits_len
 from ..field.device import (
     ef_add,
     ef_const,
@@ -129,7 +129,7 @@ class TwoAdicFriPcs:
             lde = bit_reverse_rows(lde)
             domains.append(domain)
             ldes.append(lde)
-            mats.append(FMatrix(fetch_canonical(lde)))
+            mats.append(FMatrix(dev=lde))
         commitment, commited = self.mmcs.commit(mats)
         return commitment, PcsProverData(domains=domains, ldes=ldes, commited=commited)
 

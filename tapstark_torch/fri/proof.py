@@ -5,8 +5,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any
 
-from tapstark.commit.tcs import CommitedProof
-from tapstark.field.scalar import EF4
+from ..commit.tcs import CommitedProof
+from ..field.scalar import EF4
 
 
 @dataclass

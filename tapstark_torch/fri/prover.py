@@ -8,8 +8,8 @@
   input rounds and every commit-phase layer (prover.rs:45-59).
 
 Inputs are (n, 4) extension Montgomery tensors sorted by descending
-length. Layer trees build on the host (shared TapTreeMmcs), from canonical
-numpy copies.
+length. A layer folded on the card commits its tensor, so its trees hash on
+the card; the host tail commits canonical numpy arrays on the host engine.
 """
 
 from __future__ import annotations
@@ -17,24 +17,23 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tapstark.challenger import BfChallenger
-from tapstark.commit.tcs import FMatrix
-from tapstark.field.constants import P
-from tapstark.field.scalar import EF4
-from tapstark.utils import log2_strict
-
+from ..challenger import BfChallenger
+from ..commit.tcs import FMatrix
+from ..field.constants import P
 from ..field.device import ef_add, ef_const, fetch_canonical
+from ..field.scalar import EF4
 from ..poly.fold import fold_matrix, fold_matrix_host
+from ..utils import log2_strict
 from ..utils.profiling import span
 from .config import FriConfig
 from .proof import BfQueryProof, FriProof
 
-# Layers that fold to at most this many rows fold on the host. Each layer's
-# tree builds on the host anyway, so its canonical copy crosses to the host
-# in any case; the switch decides who folds. Measured on an H100 80GB HBM3
-# (700 W): a device fold plus fetch costs 7.6-12.6 ms at any size up to
-# 2^12 rows (eager launch overhead: ~400 small launches), the exact numpy
-# fold 2.3 ms at 2^12 and 10.1 ms at 2^14 rows (PERF.md, "FRI host tail").
+# Layers that fold to at most this many rows fold and commit on the host.
+# Measured on an H100 80GB HBM3 (700 W), with layer trees hashed on the
+# card (chip_smoke.py): one 28-repetition layer's fold + commit costs
+# 18-35 ms on the host and 23-49 ms on the card up to 2^12 rows, but
+# 42-57 ms on the host and 25-47 ms on the card at 2^14 (the eager fold's
+# ~400 launches and the host keygen are in both; PERF.md, "FRI host tail").
 HOST_TAIL_MAX_HALF = 1 << 13
 
 
@@ -55,7 +54,7 @@ def bf_prove(
         commits, data, final_poly = _commit_phase(config, inputs, challenger)
 
     with span("fri/grind"):
-        pow_witness = challenger.grind(config.proof_of_work_bits, use_device=False)
+        pow_witness = challenger.grind(config.proof_of_work_bits)
 
     with span("fri/queries"):
         query_proofs = []
@@ -92,18 +91,18 @@ def _commit_phase(config: FriConfig, inputs: list[torch.Tensor], challenger: BfC
             folded_host = fetch_canonical(folded)
             pending = [fetch_canonical(p) for p in pending]
         if folded_host is not None:
-            mat_arr = folded_host.reshape(half, 2, 4)
+            mat = FMatrix(folded_host.reshape(half, 2, 4))
         else:
             mat_dev = folded.reshape(half, 2, 4)
-            mat_arr = fetch_canonical(mat_dev)
-        commit, prover_data = config.mmcs.commit_matrix(FMatrix(mat_arr))
+            mat = FMatrix(dev=mat_dev)
+        commit, prover_data = config.mmcs.commit_matrix(mat)
         challenger.observe_commitment(commit)
         beta: EF4 = challenger.sample()
         commits.append(commit)
         data.append(prover_data)
 
         if folded_host is not None:
-            folded_host = fold_matrix_host(beta, mat_arr)
+            folded_host = fold_matrix_host(beta, mat.values)
             if pending and pending[0].shape[0] == half:
                 total = folded_host.astype(np.uint64) + pending.pop(0)
                 folded_host = (total % np.uint64(P)).astype(np.uint32)

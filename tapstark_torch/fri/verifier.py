@@ -12,11 +12,10 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-from tapstark.challenger import BfChallenger
-from tapstark.field.scalar import EF4, F
-from tapstark.utils import reverse_bits_len
-
+from ..challenger import BfChallenger
+from ..field.scalar import EF4, F
 from ..poly.fold import fold_row_scalar
+from ..utils import reverse_bits_len
 from .config import FriConfig
 from .proof import FriProof
 

@@ -1,10 +1,11 @@
 """Carry-across between the JAX package and the port (used by the tests).
 
 Field arrays cross as Montgomery words: numpy uint32 on the JAX side,
-int32 tensors here. Configurations cross by sharing the very same
-TapTreeMmcs objects, so both packages commit with one secrets stream.
-Proofs cross as bytes: the two serdes write the same format. The JAX
-package is imported only inside `proof_to_reference`.
+int32 tensors here. Configurations cross by value: `pcs_from_reference`
+builds the port's own TapTreeMmcs and BcManager from the reference
+object's fields, so both packages derive the same bit-commitment secrets
+in the same order. Proofs cross as bytes: the two serdes write the same
+format. Nothing of the JAX package is imported here.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .commit import BcManager, TapTreeMmcs
 from .fri.config import FriConfig
 from .fri.pcs import TwoAdicFriPcs
 
@@ -26,22 +28,24 @@ def mont_np_from_tensor(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().contiguous().numpy().view(np.uint32)
 
 
+def mmcs_from_reference(ref_mmcs) -> TapTreeMmcs:
+    """The port's TapTreeMmcs for a JAX-package one: a BcManager with the
+    same seed, at the same point of its secrets stream (BcManager derives
+    secret k from (seed, k) alone)."""
+    manager = BcManager(ref_mmcs.manager._seed)
+    manager._counter = ref_mmcs.manager._counter
+    return TapTreeMmcs(manager, ref_mmcs.num_queries, ref_mmcs.ext)
+
+
 def pcs_from_reference(ref_pcs, device) -> TwoAdicFriPcs:
-    """The port's PCS for a JAX-package `TwoAdicFriPcs`, sharing its
-    input mmcs and its FRI mmcs objects."""
+    """The port's PCS for a JAX-package `TwoAdicFriPcs`, with the port's
+    own copies of its input mmcs and its FRI mmcs."""
     f = ref_pcs.fri
     fri = FriConfig(
         log_blowup=f.log_blowup,
         num_queries=f.num_queries,
         proof_of_work_bits=f.proof_of_work_bits,
-        mmcs=f.mmcs,
+        mmcs=mmcs_from_reference(f.mmcs),
         log_final_poly_len=f.log_final_poly_len,
     )
-    return TwoAdicFriPcs(ref_pcs.mmcs, fri, device)
-
-
-def proof_to_reference(data: bytes):
-    """Serialized port proof → the JAX package's Proof (its own serde)."""
-    from tapstark.stark.serde import proof_from_bytes
-
-    return proof_from_bytes(data)
+    return TwoAdicFriPcs(mmcs_from_reference(ref_pcs.mmcs), fri, device)

@@ -22,10 +22,9 @@ import functools
 
 import torch
 
-from tapstark.field.constants import P, two_adic_generator
-from tapstark.utils import log2_strict
-
+from ..field.constants import P, two_adic_generator
 from ..field.device import fp_const
+from ..utils import log2_strict
 from .ntt import bit_reverse_rows, intt, ntt, scale_by_shift_powers
 from .powers import bitrev_indices_dev, geom_powers_mont_dev
 

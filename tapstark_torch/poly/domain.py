@@ -12,11 +12,10 @@ from dataclasses import dataclass
 
 import torch
 
-from tapstark.field.constants import P
-from tapstark.field.scalar import EF4, F
-from tapstark.utils import log2_ceil, log2_strict
-
+from ..field.constants import P
 from ..field.device import MONT_ONE, fp_const, fp_inv, fp_mul, fp_pow, fp_sub
+from ..field.scalar import EF4, F
+from ..utils import log2_ceil, log2_strict
 from .powers import geom_powers_mont_dev
 
 

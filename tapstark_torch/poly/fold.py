@@ -13,11 +13,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tapstark.field.constants import P
-from tapstark.field.scalar import EF4, F
-from tapstark.utils import bitrev_indices, log2_strict, reverse_bits_len
-
+from ..field.constants import P
 from ..field.device import MONT_HALF, ef_add, ef_mul, ef_mul_base, ef_sub, fp_mul
+from ..field.scalar import EF4, F
+from ..utils import bitrev_indices, log2_strict, reverse_bits_len
 from .powers import bitrev_1d_dev, geom_powers_mont_dev, np_geom_powers
 
 

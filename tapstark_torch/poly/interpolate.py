@@ -10,10 +10,9 @@ from __future__ import annotations
 
 import torch
 
-from tapstark.field.scalar import EF4, F
-from tapstark.utils import log2_strict
-
 from ..field.device import ef_inv, ef_mul_base, fp_sub
+from ..field.scalar import EF4, F
+from ..utils import log2_strict
 
 
 def _interp_weights(xs_mont: torch.Tensor, z_const: torch.Tensor) -> torch.Tensor:

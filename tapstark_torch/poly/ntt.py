@@ -15,10 +15,9 @@ import functools
 
 import torch
 
-from tapstark.field.constants import P, two_adic_generator
-from tapstark.utils import log2_strict
-
+from ..field.constants import P, two_adic_generator
 from ..field.device import fp_add, fp_const, fp_mul, fp_sub
+from ..utils import log2_strict
 from .powers import bitrev_indices_dev, geom_powers_mont_dev
 
 

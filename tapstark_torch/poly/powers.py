@@ -8,8 +8,7 @@ import functools
 import numpy as np
 import torch
 
-from tapstark.field.constants import P
-
+from ..field.constants import P
 from ..field.device import fp_const, fp_mul
 
 

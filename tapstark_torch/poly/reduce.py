@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from tapstark.field.constants import P
+from ..field.constants import P
 
 
 def fp_sum_axis0(x: torch.Tensor) -> torch.Tensor:

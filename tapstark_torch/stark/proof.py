@@ -4,8 +4,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-from tapstark.field.scalar import EF4
-
+from ..field.scalar import EF4
 from ..fri.proof import FriProof
 
 

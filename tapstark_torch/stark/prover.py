@@ -13,14 +13,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tapstark.air.symbolic import get_log_quotient_degree
-from tapstark.challenger import BfChallenger
-from tapstark.field.scalar import EF4, F
-from tapstark.utils import log2_strict
-
 from ..air.folders import ProverConstraintFolder
+from ..air.symbolic import get_log_quotient_degree
+from ..challenger import BfChallenger
 from ..field.device import ef_mul_base, to_mont
+from ..field.scalar import EF4, F
 from ..fri.pcs import TwoAdicFriPcs
+from ..utils import log2_strict
 from ..utils.profiling import span
 from .proof import Commitments, OpenedValues, Proof
 

@@ -18,11 +18,10 @@ from __future__ import annotations
 import io
 import struct
 
-from tapstark.commit.bitcomm import BitCommitment, BitCommitmentU32
-from tapstark.commit.taptree import LeafNode
-from tapstark.commit.tcs import CommitedProof, ShardedCommitedProof, UseBComm
-from tapstark.field.scalar import EF4, F
-
+from ..commit.bitcomm import BitCommitment, BitCommitmentU32
+from ..commit.taptree import LeafNode
+from ..commit.tcs import CommitedProof, ShardedCommitedProof, UseBComm
+from ..field.scalar import EF4, F
 from ..fri.pcs import BatchOpening
 from ..fri.proof import BfQueryProof, FriProof
 from .proof import Commitments, OpenedValues, Proof

@@ -8,11 +8,10 @@ the out-of-domain constraint check folded * Z_H^{-1} == quotient.
 
 from __future__ import annotations
 
-from tapstark.air.symbolic import get_log_quotient_degree
-from tapstark.challenger import BfChallenger
-from tapstark.field.scalar import EF4, F
-
 from ..air.folders import VerifierConstraintFolder
+from ..air.symbolic import get_log_quotient_degree
+from ..challenger import BfChallenger
+from ..field.scalar import EF4, F
 from ..fri.pcs import TwoAdicFriPcs
 from .proof import Proof
 

@@ -1,0 +1,265 @@
+"""The port's taptree commit layer (tapstark_torch.hashes.sha256_device,
+tapstark_torch.commit.device_commit, the device path of
+tapstark_torch.commit.tcs) against the JAX package's, word for word.
+
+On the CPU the kernel wrappers run their plain versions; the CUDA kernels
+are held against those plain versions by the `cuda`-marked tests (and by
+chip_smoke.py on the card). The JAX side runs its CPU scan path: the Pallas
+kernels K5/K6 are not run in interpret mode (multi-minute XLA:CPU
+compiles). Exact equality throughout.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tapstark.commit import BcManager as JBcManager
+from tapstark.commit import device_commit as jdc
+from tapstark.commit.taptree import build_taptree
+from tapstark.commit.tcs import TCS as JTCS
+from tapstark.commit.tcs import FMatrix as JFMatrix
+from tapstark.commit.tcs import _leaf_script_from_row, _max_tail_len
+from tapstark.field.constants import P
+from tapstark.field.device import np_to_mont
+from tapstark.hashes import sha256_device as jsd
+from tapstark.hashes.sha256 import tapbranch_hash
+from tapstark.utils import bitrev_indices
+from tapstark_torch.commit import BcManager
+from tapstark_torch.commit import device_commit as dc
+from tapstark_torch.commit import tcs
+from tapstark_torch.hashes import sha256_device as sd
+from tapstark_torch.interop import mont_np_from_tensor, tensor_from_mont_np
+
+EDGE = [0, 1, 16, 17, 0x7F, 0x80, 0x7FFF, 0x8000, 0x7FFFFF, 0x800000, P - 1]
+
+
+def _words(rng, *shape) -> np.ndarray:
+    return rng.integers(0, 1 << 32, shape, dtype=np.uint64).astype(np.uint32)
+
+
+def _t(a: np.ndarray) -> torch.Tensor:
+    return tensor_from_mont_np(a)
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return mont_np_from_tensor(t)
+
+
+def test_compress_plain_matches_jax_and_numpy():
+    rng = np.random.default_rng(30)
+    m = 37
+    state, block = _words(rng, 8, m), _words(rng, 32, m)
+    got = _np(sd.compress_wm(_t(state), _t(block)))
+    # two chained compressions per lane, through the JAX scan path
+    want = jsd.compress_batch_wm(jnp.asarray(state), jnp.asarray(block[:16]))
+    want = np.asarray(jsd.compress_batch_wm(want, jnp.asarray(block[16:])))
+    np.testing.assert_array_equal(got, want)
+    for i in (0, 17, m - 1):
+        one = jsd._compress_np(jsd._compress_np(state[:, i], block[:16, i]), block[16:, i])
+        np.testing.assert_array_equal(got[:, i], one)
+
+
+def test_compress_leaf_form_matches_materialized_blocks():
+    """The leaf form (shared suffix | per-repetition remainder, per-repetition
+    midstates) equals the JAX compression of the materialized blocks."""
+    rng = np.random.default_rng(31)
+    r, n = 3, 24
+    mids, suffix, rem = _words(rng, 8, r), _words(rng, 32, n), _words(rng, 32, r)
+    got = _np(sd.compress_wm(_t(mids), _t(suffix), _t(rem)))
+    assert got.shape == (8, r, n)
+    state = jnp.broadcast_to(jnp.asarray(mids)[:, :, None], (8, r, n))
+    for b in range(2):
+        blk = suffix[16 * b : 16 * b + 16, None, :] | rem[16 * b : 16 * b + 16, :, None]
+        state = jsd.compress_batch_wm(state, jnp.asarray(blk))
+    np.testing.assert_array_equal(got, np.asarray(state))
+
+
+def test_tapbranch_plain_matches_jax_and_host():
+    rng = np.random.default_rng(32)
+    m = 21
+    h1, h2 = _words(rng, 8, m), _words(rng, 8, m)
+    h2[:, ::3] = h1[:, ::3]  # equal pairs: the lexicographic tie
+    h2[:3, 1::3] = h1[:3, 1::3]  # pairs that first differ at word 3
+    got = _np(sd.tapbranch_wm(_t(h1), _t(h2)))
+    np.testing.assert_array_equal(got, np.asarray(jsd.tapbranch_hash_batch_wm(jnp.asarray(h1), jnp.asarray(h2))))
+    for i in range(m):
+        want = tapbranch_hash(h1[:, i].astype(">u4").tobytes(), h2[:, i].astype(">u4").tobytes())
+        assert got[:, i].astype(">u4").tobytes() == want
+    # strided children, as a tree level passes them
+    level = _t(np.stack([h1, h2], axis=2).reshape(8, 2 * m)).view(8, m, 2)
+    np.testing.assert_array_equal(_np(sd.tapbranch_wm(level[:, :, 0], level[:, :, 1])), got)
+
+
+def _jax_suffix(vals, jplan, idx):
+    """The JAX package's suffix words in its one-hot form. Its word-major
+    builder (`build_tail_suffix_words`) computes the same words (the JAX
+    package's tests/test_device_commit.py holds the two equal at these
+    shapes) but compiles for 14-25 s per shape on XLA:CPU, except at
+    (300, 2, 1), where the test below holds the port against it."""
+    return np.asarray(
+        jdc._suffix_all_jit(
+            jnp.asarray(vals), jnp.asarray(jplan.pad_words), jnp.asarray(idx, dtype=jnp.uint32),
+            jplan.tail_span, jplan.rem_len, jplan.suf_words, 1 << 16,
+        )
+    ).T
+
+
+def _suffix_case(n, k, l):
+    """Seeded (n, k, l) values with the edge values planted, a head length
+    and the shard's fixed script length."""
+    rng = np.random.default_rng(11)
+    vals = rng.integers(0, P, (n, k, l), dtype=np.uint64).astype(np.uint32)
+    for i, v in enumerate(EDGE):
+        vals[i % n, i % k, i % l] = v
+    head = bytes(rng.integers(0, 256, 731, dtype=np.uint8))
+    return vals, len(head), len(head) + _max_tail_len(k, l)
+
+
+@pytest.mark.parametrize("n,k,l", [(64, 3, 4), (300, 2, 1), (256, 8, 1), (512, 2, 4)])
+def test_suffix_words_match_jax(n, k, l):
+    vals, head_len, fixed_len = _suffix_case(n, k, l)
+    plan = dc.ShardSuffixPlan(head_len, fixed_len)
+    jplan = jdc.ShardSuffixPlan(head_len, fixed_len)
+    got = _np(dc.build_tail_suffix_words(_t(vals), plan, base_index=7))
+    want = _jax_suffix(vals, jplan, 7 + np.arange(n))
+    assert got.shape == (plan.suf_words, n)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(plan.pad_words, jplan.pad_words)
+
+
+def test_suffix_words_match_jax_word_major_builder():
+    """Against the JAX package's `build_tail_suffix_words` itself, at the
+    one shape of the four above whose XLA:CPU compile takes seconds, not
+    tens of seconds (300 leaves of 2 base-field values)."""
+    vals, head_len, fixed_len = _suffix_case(300, 2, 1)
+    got = _np(dc.build_tail_suffix_words(_t(vals), dc.ShardSuffixPlan(head_len, fixed_len), base_index=7))
+    want = jdc.build_tail_suffix_words(vals, jdc.ShardSuffixPlan(head_len, fixed_len), base_index=7)
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+def test_shard_trees_match_jax_and_host_taptree():
+    """Roots and the paths above the cutoff against the JAX package's
+    device-commit trees and the host taptree (n = 64, 3 reps, cutoff 3)."""
+    rng = np.random.default_rng(2)
+    n, k, l, cutoff = 64, 3, 4, 3
+    heads = [bytes(rng.integers(0, 256, 731, dtype=np.uint8)) for _ in range(3)]
+    vals = rng.integers(0, P, (n, k, l), dtype=np.uint64).astype(np.uint32)
+    for i, v in enumerate(EDGE):
+        vals[i, 0, 0] = v
+    fixed_len = len(heads[0]) + _max_tail_len(k, l)
+
+    plan = dc.ShardSuffixPlan(len(heads[0]), fixed_len)
+    mids, rems = plan.head_midstates_batch(heads)
+    suffix = dc.build_tail_suffix_words(_t(vals), plan)
+    roots, uppers = dc.shard_trees_rep_group(suffix, mids, rems, cutoff)
+    [per_rep] = dc.fetch_trees([(roots, uppers)], n, cutoff)
+
+    jplan = jdc.ShardSuffixPlan(len(heads[0]), fixed_len)
+    jmids, jrems = jplan.head_midstates_batch(heads)
+    np.testing.assert_array_equal(mids, jmids)
+    np.testing.assert_array_equal(rems, jrems)
+    # the JAX trees keep leaves in bit-reversed lane order
+    jsuffix = jnp.asarray(_jax_suffix(vals[bitrev_indices(6)], jplan, bitrev_indices(6)))
+    jroots, juppers = jdc.shard_trees_rep_group(jsuffix, jmids, jrems, cutoff)
+    assert [root for root, _ in per_rep] == jroots
+    np.testing.assert_array_equal(_np(roots), np.stack([np.frombuffer(b, ">u4") for b in jroots]))
+
+    for r, head in enumerate(heads):
+        t = build_taptree([_leaf_script_from_row(head, fixed_len, i, vals[i]) for i in range(n)])
+        root, levels = per_rep[r]
+        assert root == t.root_hash
+        assert [lv.shape for lv in levels] == [(n >> lvl, 32) for lvl in range(cutoff, 6)]
+        for i in (0, 5, 37, n - 1):
+            above = [bytes(levels[lvl - cutoff][(i >> lvl) ^ 1]) for lvl in range(cutoff, 6)]
+            assert above == t.get_tapleaf(i).merkle_branch[cutoff:] == juppers.view(r).path_bytes(i)
+
+
+def _leaf_bytes(proof):
+    return [(s.leaf.script, s.leaf.leaf_hash, s.leaf.merkle_branch) for s in getattr(proof, "shards", [proof])]
+
+
+def _open_all(datas, queries):
+    return [[_leaf_bytes(d.query_proof(q)) for q in queries] for d in datas]
+
+
+@pytest.mark.parametrize(
+    "shapes",
+    [
+        [(64, 3)],  # one base-field matrix
+        [(32, 2, 4)],  # an FRI layer: (half, 2) extension values
+        [(64, 2), (16, 1)],  # two heights: rows repeat in the padding matrix
+        [(16, 41)],  # 41 values: two column shards
+    ],
+)
+def test_tcs_device_path_matches_host_paths(shapes):
+    """The port's TCS on CPU tensors (the device path, through the kernels'
+    plain versions) against its host path and the JAX package's host
+    commit: roots, openings and the leaf values they open."""
+    rng = np.random.default_rng(40)
+    reps = 2
+    canon = [rng.integers(0, P, s).astype(np.uint32) for s in shapes]
+    for a in canon:
+        a.reshape(-1)[: len(EDGE)] = EDGE[: a.size]
+    mats_dev = [tcs.FMatrix(dev=_t(np_to_mont(a))) for a in canon]
+    on_dev = tcs.TCS(BcManager()).commit_poly_with_query_times(mats_dev, reps)
+    on_host = tcs.TCS(BcManager()).commit_poly_with_query_times([tcs.FMatrix(a) for a in canon], reps)
+    ref = JTCS(JBcManager()).commit_poly_with_query_times([JFMatrix(a) for a in canon], reps)
+
+    n = shapes[0][0]
+    queries = [0, 1, n // 2 + 3, n - 1]
+    assert [d.root_words() for d in on_dev] == [d.root_words() for d in on_host] == [d.root_words() for d in ref]
+    assert _open_all(on_dev, queries) == _open_all(on_host, queries) == _open_all(ref, queries)
+    for q in queries:
+        assert on_dev[1].leaf_limbs(q) == ref[1].leaf_limbs(q)
+        proof, limbs = tcs.TCS(BcManager()).open_with_one_query(1, q, on_dev)
+        assert tcs.TCS.verify_words(on_dev[1].root_words(), proof, limbs)
+
+
+def test_device_commit_group_split(monkeypatch):
+    """Repetitions split into several rep-groups commit to the same roots."""
+    rng = np.random.default_rng(41)
+    a = rng.integers(0, P, (32, 2)).astype(np.uint32)
+    whole = tcs.TCS(BcManager()).commit_poly_with_query_times([tcs.FMatrix(dev=_t(np_to_mont(a)))], 3)
+    monkeypatch.setattr(tcs, "_DEVICE_GROUP_LANES", 64)  # 2 repetitions of 32 leaves per group
+    split = tcs.TCS(BcManager()).commit_poly_with_query_times([tcs.FMatrix(dev=_t(np_to_mont(a)))], 3)
+    assert [d.root_words() for d in split] == [d.root_words() for d in whole]
+    assert _open_all(split, [0, 31]) == _open_all(whole, [0, 31])
+
+
+def test_sha_wrappers_raise_off_cpu_and_cuda():
+    x = torch.empty((8, 4), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        sd.compress_wm(x, torch.empty((16, 4), dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError):
+        sd.tapbranch_wm(x, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1 << 12, 4099])
+def test_cuda_sha_kernels_match_plain(lanes):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    rng = np.random.default_rng(50)
+    state, block = _t(_words(rng, 8, lanes)).cuda(), _t(_words(rng, 32, lanes)).cuda()
+    h1, h2 = _t(_words(rng, 8, lanes)).cuda(), _t(_words(rng, 8, lanes)).cuda()
+    h2[:, ::3] = h1[:, ::3]
+    before = dict(sd.launches)
+    assert torch.equal(sd.compress_wm(state, block), sd.compress_wm_plain(state, block))
+    assert torch.equal(sd.tapbranch_wm(h1, h2), sd.tapbranch_wm_plain(h1, h2))
+    mids, rem = _t(_words(rng, 8, 5)).cuda(), _t(_words(rng, 32, 5)).cuda()
+    assert torch.equal(sd.compress_wm(mids, block, rem), sd.compress_wm_plain(mids, block, rem))
+    assert sd.launches["sha256_compress"] == before["sha256_compress"] + 2
+    assert sd.launches["tapbranch"] == before["tapbranch"] + 1
+
+
+@pytest.mark.cuda
+def test_cuda_tcs_matches_host_engine():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    rng = np.random.default_rng(51)
+    a = rng.integers(0, P, (1 << 12, 2, 4)).astype(np.uint32)
+    on_card = tcs.TCS(BcManager()).commit_poly_with_query_times([tcs.FMatrix(dev=_t(np_to_mont(a)).cuda())], 3)
+    on_host = tcs.TCS(BcManager()).commit_poly_with_query_times([tcs.FMatrix(a)], 3)
+    assert [d.root_words() for d in on_card] == [d.root_words() for d in on_host]
+    assert _open_all(on_card, [0, 7, 4095]) == _open_all(on_host, [0, 7, 4095])

@@ -11,11 +11,12 @@ import numpy as np
 import pytest
 import torch
 
-from tapstark.field.constants import MULT_GENERATOR, P
+from tapstark.field.constants import P
 from tapstark.field.device import np_to_mont
 from tapstark.poly.ntt import bit_reverse_rows as j_bit_reverse_rows
 from tapstark.poly.ntt import coset_lde_batch_jit, intt_jit, ntt_jit
 from tapstark.poly.pallas_ntt import _block_scales, coset_lde_batch_pallas_fused
+from tapstark_torch.field.constants import MULT_GENERATOR
 from tapstark_torch.interop import mont_np_from_tensor, tensor_from_mont_np
 from tapstark_torch.poly import cuda_ntt
 from tapstark_torch.poly.ntt import (

@@ -1,7 +1,10 @@
 """The port's prover layers (quotient, open, FRI fold) against the JAX
 package's, and the port's whole prove/verify at the frozen golden
 configuration: the proof must come out byte for byte as the JAX package's
-frozen one (tests/test_golden.py), on the CPU and with JAX unimportable.
+frozen one (tests/test_golden.py), on the CPU and with neither JAX nor the
+JAX package importable. The port side uses only the port's own objects
+(AIRs, challenger, field scalars, TapTreeMmcs/BcManager); the JAX package
+is imported for the reference side alone.
 """
 
 import dataclasses
@@ -15,10 +18,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tapstark.airs import FibonacciAir, MulAir, generate_fibonacci_trace
-from tapstark.challenger import BfChallenger
-from tapstark.commit import BcManager, TapTreeMmcs
-from tapstark.field import EF4, F, P
+import tapstark.airs as jairs
+from tapstark.challenger import BfChallenger as JBfChallenger
+from tapstark.commit import BcManager as JBcManager
+from tapstark.commit import TapTreeMmcs as JTapTreeMmcs
+from tapstark.field import EF4 as JEF4
+from tapstark.field import F as JF
+from tapstark.field import P
 from tapstark.field.device import np_to_mont
 from tapstark.fri import FriConfig as JFriConfig
 from tapstark.fri import TwoAdicFriPcs as JTwoAdicFriPcs
@@ -28,14 +34,14 @@ from tapstark.poly.fold import fold_matrix_host as j_fold_matrix_host
 from tapstark.poly.fold import fold_matrix_jit
 from tapstark.stark import quotient_values as j_quotient_values
 from tapstark.stark import verify as j_verify
+from tapstark.stark.serde import proof_from_bytes as j_proof_from_bytes
+from tapstark_torch.airs import FibonacciAir, MulAir, generate_fibonacci_trace
+from tapstark_torch.challenger import BfChallenger
+from tapstark_torch.commit.tcs import TCS
+from tapstark_torch.field import EF4, F
 from tapstark_torch.field.device import ef_const, fetch_canonical
 from tapstark_torch.fri.pcs import _inv_denoms, _open_height
-from tapstark_torch.interop import (
-    mont_np_from_tensor,
-    pcs_from_reference,
-    proof_to_reference,
-    tensor_from_mont_np,
-)
+from tapstark_torch.interop import mont_np_from_tensor, pcs_from_reference, tensor_from_mont_np
 from tapstark_torch.poly.domain import TwoAdicMultiplicativeCoset
 from tapstark_torch.poly.fold import fold_matrix, fold_matrix_host
 from tapstark_torch.stark import VerificationError, prove, quotient_values, verify
@@ -55,23 +61,28 @@ def _same(t, j):
     np.testing.assert_array_equal(mont_np_from_tensor(t), np.asarray(j))
 
 
-@pytest.mark.parametrize("air,log_n", [(FibonacciAir(), 5), (MulAir(), 4)])
+@pytest.mark.parametrize(
+    "air,log_n", [((FibonacciAir(), jairs.FibonacciAir()), 5), ((MulAir(), jairs.MulAir()), 4)]
+)
 def test_quotient_values_match_jax(air, log_n):
-    from tapstark.air.symbolic import get_log_quotient_degree
+    from tapstark_torch.air.symbolic import get_log_quotient_degree
 
+    air, j_air = air
     rng = np.random.default_rng(21)
-    pis = [F(int(v)) for v in rng.integers(0, P, 3)]
-    alpha = EF4([int(v) for v in rng.integers(0, P, 4)])
-    lqd = get_log_quotient_degree(air, len(pis))
+    pis_v = [int(v) for v in rng.integers(0, P, 3)]
+    alpha_v = [int(v) for v in rng.integers(0, P, 4)]
+    lqd = get_log_quotient_degree(air, len(pis_v))
     tq = _mont(rng, (1 << (log_n + lqd), air.width()))
 
     jd = JCoset(log_n, 1)
     want = j_quotient_values(
-        air, pis, jd, jd.create_disjoint_domain(1 << (log_n + lqd)), jnp.asarray(tq), alpha
+        j_air, [JF(v) for v in pis_v], jd, jd.create_disjoint_domain(1 << (log_n + lqd)),
+        jnp.asarray(tq), JEF4(alpha_v),
     )
     td = TwoAdicMultiplicativeCoset(log_n, 1)
     got = quotient_values(
-        air, pis, td, td.create_disjoint_domain(1 << (log_n + lqd)), tensor_from_mont_np(tq), alpha
+        air, [F(v) for v in pis_v], td, td.create_disjoint_domain(1 << (log_n + lqd)),
+        tensor_from_mont_np(tq), EF4(alpha_v),
     )
     _same(got, want)
 
@@ -103,11 +114,12 @@ def test_open_height_reduction_matches_jax():
 def test_fold_matches_jax(log_half):
     rng = np.random.default_rng(23 + log_half)
     m = _mont(rng, (1 << log_half, 2, 4))
-    beta = EF4([int(v) for v in rng.integers(0, P, 4)])
+    beta_v = [int(v) for v in rng.integers(0, P, 4)]
+    beta = EF4(beta_v)
     got = fold_matrix(ef_const(beta, "cpu"), tensor_from_mont_np(m))
-    _same(got, fold_matrix_jit(jnp.asarray(np_to_mont(np.array(beta.c, np.uint32))), jnp.asarray(m)))
+    _same(got, fold_matrix_jit(jnp.asarray(np_to_mont(np.array(beta_v, np.uint32))), jnp.asarray(m)))
     canon = fetch_canonical(tensor_from_mont_np(m))
-    np.testing.assert_array_equal(fold_matrix_host(beta, canon), j_fold_matrix_host(beta, canon))
+    np.testing.assert_array_equal(fold_matrix_host(beta, canon), j_fold_matrix_host(JEF4(beta_v), canon))
     np.testing.assert_array_equal(fold_matrix_host(beta, canon), fetch_canonical(got))
 
 
@@ -123,10 +135,12 @@ def test_interpolation_matches_jax_host_reference():
     rng = np.random.default_rng(24)
     log_n, shift = 4, F.generator().v
     canon = rng.integers(0, P, (1 << log_n, 2)).astype(np.uint32)
-    z = EF4([int(v) for v in rng.integers(0, P, 4)])
+    z_v = [int(v) for v in rng.integers(0, P, 4)]
+    z = EF4(z_v)
     rows = [[F(int(v)) for v in row] for row in canon]
     want = interpolate_coset_host(rows, shift, z)
-    assert want == j_interpolate_host(rows, shift, z)
+    j_want = j_interpolate_host([[JF(int(v)) for v in row] for row in canon], shift, JEF4(z_v))
+    assert [e.as_u32_vec() for e in want] == [e.as_u32_vec() for e in j_want]
 
     xs = geom_powers_mont_dev(F.two_adic_generator(log_n).v, log_n, shift, "cpu")
     iw = _interp_weights(xs, ef_const(z, "cpu"))
@@ -139,27 +153,39 @@ def test_interpolation_matches_jax_host_reference():
 
 
 def _golden_setup():
+    """The JAX package's golden configuration, and the port's twin of it
+    (its own TapTreeMmcs and BcManagers, from the reference's fields)."""
     nq = 28
     fri = JFriConfig(
         log_blowup=2, num_queries=nq, proof_of_work_bits=8,
-        mmcs=TapTreeMmcs(BcManager(), nq, ext=True),
+        mmcs=JTapTreeMmcs(JBcManager(), nq, ext=True),
     )
-    ref_pcs = JTwoAdicFriPcs(TapTreeMmcs(BcManager(), nq, ext=False), fri)
+    ref_pcs = JTwoAdicFriPcs(JTapTreeMmcs(JBcManager(), nq, ext=False), fri)
     trace = generate_fibonacci_trace(0, 1, 1 << 3)
     pis = [F(0), F(1), F(int(trace[-1, 1]))]
-    return ref_pcs, trace, pis
+    return ref_pcs, pcs_from_reference(ref_pcs, "cpu"), trace, pis
 
 
 @pytest.fixture(scope="module")
 def golden():
-    ref_pcs, trace, pis = _golden_setup()
-    pcs = pcs_from_reference(ref_pcs, "cpu")
-    proof = prove(pcs, FibonacciAir(), BfChallenger(), trace, pis)
-    return ref_pcs, pcs, pis, proof, proof_to_bytes(proof)
+    ref_pcs, pcs, trace, pis = _golden_setup()
+    commits = []
+    real = TCS._commit_device
+
+    def counted(self, *args):
+        commits.append(args[0])
+        return real(self, *args)
+
+    TCS._commit_device = counted
+    try:
+        proof = prove(pcs, FibonacciAir(), BfChallenger(), trace, pis)
+    finally:
+        TCS._commit_device = real
+    return ref_pcs, pcs, pis, proof, proof_to_bytes(proof), commits
 
 
 def test_golden_proof_bytes_on_cpu(golden):
-    ref_pcs, pcs, pis, proof, data = golden
+    ref_pcs, pcs, pis, proof, data, commits = golden
     assert proof.opening_proof.pow_witness == GOLDEN_POW_WITNESS
     assert len(data) == GOLDEN_PROOF_LEN
     assert hashlib.sha256(data).hexdigest() == GOLDEN_PROOF_SHA256
@@ -167,18 +193,28 @@ def test_golden_proof_bytes_on_cpu(golden):
 
 
 def test_golden_proof_verifies_in_jax_package(golden):
-    ref_pcs, pcs, pis, proof, data = golden
-    j_verify(ref_pcs, FibonacciAir(), BfChallenger(), proof_to_reference(data), pis)
+    ref_pcs, pcs, pis, proof, data, commits = golden
+    j_pis = [JF(p.v) for p in pis]
+    j_verify(ref_pcs, jairs.FibonacciAir(), JBfChallenger(), j_proof_from_bytes(data), j_pis)
+
+
+def test_golden_proof_commits_through_device_path(golden):
+    """The trace and quotient commits took the device path (the kernels'
+    plain versions on the CPU): the PCS hands TCS its LDE tensors."""
+    ref_pcs, pcs, pis, proof, data, commits = golden
+    assert len(commits) == 2
+    assert all(m.dev is not None and m.dev.device.type == "cpu" for ms in commits for m in ms)
+    assert hashlib.sha256(data).hexdigest() == GOLDEN_PROOF_SHA256
 
 
 def test_wrong_public_values_rejected(golden):
-    ref_pcs, pcs, pis, proof, data = golden
+    ref_pcs, pcs, pis, proof, data, commits = golden
     with pytest.raises(VerificationError):
         verify(pcs, FibonacciAir(), BfChallenger(), proof, [pis[0], pis[1], pis[2] + F(1)])
 
 
 def test_tampered_opening_rejected(golden):
-    ref_pcs, pcs, pis, proof, data = golden
+    ref_pcs, pcs, pis, proof, data, commits = golden
     ov = proof.opened_values
     tampered = dataclasses.replace(
         proof,
@@ -191,24 +227,23 @@ def test_tampered_opening_rejected(golden):
 
 
 def test_golden_prove_with_jax_blocked():
-    """The port proves the golden configuration in a process where no jax
-    module can be imported (the shared commit module's JAX probe then
-    takes the host path)."""
+    """The port proves the golden configuration in a process where neither
+    JAX nor the JAX package can be imported."""
     script = textwrap.dedent(
         f"""
         import hashlib, sys
 
-        class BlockJax:
+        class Block:
             def find_spec(self, name, path=None, target=None):
-                if name.split(".")[0] in ("jax", "jaxlib"):
+                if name.split(".")[0] in ("jax", "jaxlib", "tapstark"):
                     raise ImportError(name + " is blocked")
 
-        sys.meta_path.insert(0, BlockJax())
+        sys.meta_path.insert(0, Block())
         sys.path.insert(0, {REPO!r})
-        from tapstark.airs import FibonacciAir, generate_fibonacci_trace
-        from tapstark.challenger import BfChallenger
-        from tapstark.commit import BcManager, TapTreeMmcs
-        from tapstark.field import F
+        from tapstark_torch.airs import FibonacciAir, generate_fibonacci_trace
+        from tapstark_torch.challenger import BfChallenger
+        from tapstark_torch.commit import BcManager, TapTreeMmcs
+        from tapstark_torch.field import F
         from tapstark_torch.fri import FriConfig, TwoAdicFriPcs
         from tapstark_torch.stark import prove
         from tapstark_torch.stark.serde import proof_to_bytes
@@ -218,12 +253,13 @@ def test_golden_prove_with_jax_blocked():
         trace = generate_fibonacci_trace(0, 1, 8)
         pis = [F(0), F(1), F(int(trace[-1, 1]))]
         proof = prove(pcs, FibonacciAir(), BfChallenger(), trace, pis)
-        assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
-        print(hashlib.sha256(proof_to_bytes(proof)).hexdigest())
+        assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tapstark")]
+        data = proof_to_bytes(proof)
+        print(hashlib.sha256(data).hexdigest(), len(data), proof.opening_proof.pow_witness)
         """
     )
     out = subprocess.run(
         [sys.executable, "-c", script], capture_output=True, text=True, cwd=REPO, timeout=300
     )
     assert out.returncode == 0, out.stderr[-2000:]
-    assert out.stdout.split()[-1] == GOLDEN_PROOF_SHA256
+    assert out.stdout.split()[-3:] == [GOLDEN_PROOF_SHA256, str(GOLDEN_PROOF_LEN), str(GOLDEN_POW_WITNESS)]
