@@ -5,17 +5,22 @@
 Builds the port's CUDA kernels from `tapstark_torch/csrc/`, holds each one
 against its plain PyTorch version on the card (exact equality: the words
 are integers), holds a north-star trace-commit shard and an FRI layer
-hashed on the card against the host SHA-NI engine, proves the frozen golden Fibonacci
-configuration on the card and checks its proof bytes, then proves and
-verifies Fibonacci at 2^20 rows, blowup 4, 28 queries and 8 PoW bits
-through `tapstark_torch`'s entry points, with the kernels' launch counts
-read around that run. (`chip_study.py` holds the longer measurements:
-full-size kernel times, the card's busy share, the FRI host-tail switch.)
+hashed on the card against the host SHA-NI engine, holds the blocks LDE
+route (2^22 rows) and the limb-matmul LDE (2^20 rows) against the fused
+route, proves the frozen golden Fibonacci configuration on the card and
+checks its proof bytes, then proves and verifies Fibonacci at 2^20 rows
+(the north star, on the fused LDE route) and at 2^22 rows (the blocks
+route), blowup 4, 28 queries and 8 PoW bits, through `tapstark_torch`'s
+entry points, with the kernels' launch counts read around each run.
+(`chip_study.py` holds the longer measurements: full-size kernel times,
+the two LDE routes at 2^22 and 2^23 rows, the card's busy share, the FRI
+host-tail switch.)
 
 The last line is `{"ok": true, "device": {...}}`; the line before it lists
-the kernels with their launches, errors, times and bounds. Any failed
-phase raises: no result line, non-zero exit. Without a CUDA device it
-exits at once. Neither JAX nor the JAX package is loaded.
+the kernels with their launches (counted on the path named in each row),
+errors, times and bounds. Any failed phase raises: no result line,
+non-zero exit. Without a CUDA device it exits at once. Neither JAX nor the
+JAX package is loaded.
 """
 
 from __future__ import annotations
@@ -40,6 +45,9 @@ GOLDEN_PROOF_LEN = 871117
 GOLDEN_POW_WITNESS = 198
 
 NORTH_STAR = dict(log_n=20, log_blowup=2, num_queries=28, pow_bits=8)
+# the next batch size up (bench_prover.py 22:2:28): above the fused LDE
+# range, so both LDEs take the blocks route (K3/K4's counterparts)
+BLOCKS_PROVE = dict(log_n=22, log_blowup=2, num_queries=28, pow_bits=8)
 # (log_n, width, log_blowup): the path's shapes, the golden size, an odd log_n
 LDE_SHAPES = [(20, 2, 2), (20, 4, 2), (3, 2, 2), (11, 3, 2)]
 # SHA-256 check shapes: plain-form lanes (a power of two and a count that is
@@ -48,11 +56,26 @@ LDE_SHAPES = [(20, 2, 2), (20, 4, 2), (3, 2, 2), (11, 3, 2)]
 SHA_LANES = [1 << 12, 4099]
 SHA_LEAF = (28, 1 << 16)
 SHA_LEAF_BLOCKS = [1, 2]
-KERNELS = [  # name, replaced TPU kernel, source
-    ("lde_inverse", "tapstark/poly/pallas_ntt.py:480", "tapstark_torch/csrc/coset_lde.cu"),  # K1
-    ("lde_forward", "tapstark/poly/pallas_ntt.py:492", "tapstark_torch/csrc/coset_lde.cu"),  # K2
-    ("sha256_compress", "tapstark/hashes/sha256_device.py:76", "tapstark_torch/csrc/sha256.cu"),  # K5
-    ("tapbranch", "tapstark/hashes/sha256_device.py:354", "tapstark_torch/csrc/sha256.cu"),  # K6
+# column-NTT check shapes (log R, B): the 2^22 prove's (the inverse and
+# forward members of the trace's LDE, width 2, and of the quotient
+# chunk's, width 4), a lane count that is no multiple of the lane tile,
+# the golden padded route's
+COLS_SHAPES = [(11, 4096), (11, 16384), (11, 8192), (11, 32768), (12, 3000), (2, 4), (3, 4)]
+COLS_REPORTED = {"dit_cols": (11, 16384, False), "dif_cols": (11, 4096, True)}
+# limb-matmul check shapes (log R, B, with twiddle): the 2^20 matmul LDE's
+# first member (128 x 2^13 * 2, twiddle in the epilogue) and without it,
+# a member of 2^6 rows, the padded small member
+MATMUL_SHAPES = [(7, 1 << 14, True), (7, 1 << 14, False), (6, 1000, True), (3, 4, False)]
+# the LDE routes held against the fused one (log_n, route), width 2, blowup 4
+LDE_ROUTES = [(22, "blocks"), (20, "limb matmul")]
+KERNELS = [  # name, replaced TPU kernel, source, path whose launches the JSON line reports
+    ("lde_inverse", "tapstark/poly/pallas_ntt.py:480", "tapstark_torch/csrc/coset_lde.cu", "prove 2^20"),  # K1
+    ("lde_forward", "tapstark/poly/pallas_ntt.py:492", "tapstark_torch/csrc/coset_lde.cu", "prove 2^20"),  # K2
+    ("dit_cols", "tapstark/poly/pallas_ntt.py:88", "tapstark_torch/csrc/ntt_cols.cu", "prove 2^22"),  # K3
+    ("dif_cols", "tapstark/poly/pallas_ntt.py:219", "tapstark_torch/csrc/ntt_cols.cu", "prove 2^22"),  # K4
+    ("sha256_compress", "tapstark/hashes/sha256_device.py:76", "tapstark_torch/csrc/sha256.cu", "prove 2^20"),  # K5
+    ("tapbranch", "tapstark/hashes/sha256_device.py:354", "tapstark_torch/csrc/sha256.cu", "prove 2^20"),  # K6
+    ("mod_matmul", "tapstark/poly/matmul_ntt.py:165", "tapstark_torch/csrc/matmul_ntt.cu", "matmul lde 2^20"),  # K7
 ]
 
 # Bounds. The card's peaks (NVIDIA H100 SXM, 700 W): 3.35 TB/s of device
@@ -64,6 +87,8 @@ KERNELS = [  # name, replaced TPU kernel, source
 # float32 figure, which counts two flops per FMA.
 MEM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 128 * 1.98e9
+# dense int8 tensor-core rate (H100 SXM data sheet), two ops per MAC
+INT8_TENSOR_OPS_PER_S = 1979e12
 # 32-bit integer instructions per unit of work, counted from the kernels:
 OPS_BUTTERFLY = 15  # Montgomery product (mul.wide, mul.lo, mul.hi, adds, select) + add + sub
 OPS_MONT_MUL = 8  # a lone Montgomery product (scales, 1/n)
@@ -71,6 +96,8 @@ OPS_MONT_MUL = 8  # a lone Montgomery product (scales, 1/n)
 # a schedule word 10 (six rotates and shifts, two LOP3, two IADD3)
 OPS_COMPRESS = 64 * 14 + 48 * 10 + 8  # rounds, schedule words, feed-forward
 OPS_TAPBRANCH = 8 * 3 + OPS_COMPRESS + 64 * 14 + 8  # sort, compress, constant block
+OPS_LIMB_SPLIT = 10  # five shifts and five masks per input word of the limb matmul
+OPS_RECOMBINE = 9 * (OPS_MONT_MUL + 3)  # nine bucket products and modular adds per output
 
 
 def bound(ops: float, nbytes: float) -> tuple[float, str]:
@@ -99,6 +126,24 @@ def lde_bounds(log_n: int, w: int, log_blowup: int) -> dict:
     }
 
 
+def cols_bound(log_r: int, b: int) -> tuple[float, str]:
+    """`dit_cols`/`dif_cols` on (R, B): (R/2)·log R·B butterflies, the
+    matrix read once and written once."""
+    r = 1 << log_r
+    return bound(r // 2 * log_r * b * OPS_BUTTERFLY, 8 * r * b)
+
+
+def matmul_bound(log_r: int, b: int, with_tw: bool) -> tuple[float, str]:
+    """`mod_matmul` on (R, B): the larger of 25·R²·B int8 MACs at the dense
+    int8 tensor rate, the int32 limb split and epilogue at the issue rate,
+    and the bytes (x, the twiddles, the output, W's limb planes)."""
+    r = 1 << log_r
+    t_mma = 2 * 25 * r * r * b / INT8_TENSOR_OPS_PER_S
+    t_int = r * b * (OPS_LIMB_SPLIT + OPS_RECOMBINE + (OPS_MONT_MUL if with_tw else 0)) / INT32_OPS_PER_S
+    t_mem = (4 * r * b * (3 if with_tw else 2) + 5 * r * r) / MEM_BYTES_PER_S
+    return 1e3 * max(t_mma, t_int, t_mem), "operations" if max(t_mma, t_int) >= t_mem else "bytes"
+
+
 def phase(name: str) -> None:
     print(f"== {name}", flush=True)
 
@@ -117,8 +162,8 @@ def make_config(num_queries: int, log_blowup: int, pow_bits: int, device):
 
 
 def prove_fibonacci(log_n: int, log_blowup: int, num_queries: int, pow_bits: int, device):
-    """Prove and verify Fibonacci through the port; returns (proof bytes,
-    witness, prove seconds, verify seconds)."""
+    """Prove and verify Fibonacci through the port (trace generation is not
+    timed); returns (proof bytes, witness, prove seconds, verify seconds)."""
     from tapstark_torch.airs import FibonacciAir, generate_fibonacci_trace
     from tapstark_torch.challenger import BfChallenger
     from tapstark_torch.field import F
@@ -162,17 +207,18 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor, where) -> int:
     return err
 
 
-def record(stats: dict, name: str, err: int, run_kernel, run_plain, where, bnd=None) -> None:
-    """Time kernel and plain version; keep the numbers when `bnd` is given
-    (the shape the JSON line reports)."""
+def record(stats: dict, name: str, err: int, run_kernel, run_plain, where, bnd=None, report=True) -> None:
+    """Time kernel and plain version; when `bnd` is given, print it and,
+    if `report`, keep the numbers for the JSON line (its reported shape)."""
     ms = median_ms(run_kernel, 20)
     plain_ms = median_ms(run_plain, 5)
     s = stats.setdefault(name, {"max_abs_err": 0})
     s["max_abs_err"] = max(s["max_abs_err"], err)
     extra = ""
     if bnd is not None:
-        s.update(ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1])
         extra = f", bound {bnd[0]:.4f} ms ({bnd[1]})"
+        if report:
+            s.update(ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1])
     print(f"kernel {name} {where}: equal, {ms:.4f} ms, plain {plain_ms:.4f} ms{extra}", flush=True)
 
 
@@ -198,6 +244,67 @@ def check_lde_kernels(dev, stats: dict) -> None:
         record(stats, "lde_forward", err, lambda: cuda_ntt.lde_forward(coeffs, log_blowup, shift),
                lambda: cuda_ntt.lde_forward_plain(coeffs, log_blowup, shift), where,
                bounds.get("lde_forward"))
+
+
+def _mont_on(dev, rng, *shape) -> torch.Tensor:
+    from tapstark_torch.field.constants import P
+    from tapstark_torch.field.device import np_to_mont
+
+    return torch.from_numpy(np_to_mont(rng.integers(0, P, shape).astype(np.uint32)).view(np.int32)).to(dev)
+
+
+def check_cols_kernels(dev, stats: dict) -> None:
+    """K3/K4's counterparts against their plain versions at every
+    COLS_SHAPES entry, in both directions."""
+    from tapstark_torch.poly import cols_ntt
+
+    rng = np.random.default_rng(5)
+    for log_r, b in COLS_SHAPES:
+        x = _mont_on(dev, rng, 1 << log_r, b)
+        for inverse in (False, True):
+            where = f"R=2^{log_r} B={b} inverse={inverse}"
+            for name, kernel, plain in (
+                ("dit_cols", cols_ntt.dit_cols, cols_ntt.dit_cols_plain),
+                ("dif_cols", cols_ntt.dif_cols, cols_ntt.dif_cols_plain),
+            ):
+                err = compare(name, kernel(x, log_r, inverse), plain(x, log_r, inverse), where)
+                record(stats, name, err, lambda: kernel(x, log_r, inverse), lambda: plain(x, log_r, inverse),
+                       where, cols_bound(log_r, b), COLS_REPORTED[name] == (log_r, b, inverse))
+
+
+def int_mm_dots_ms(x: torch.Tensor, log_r: int, inverse: bool) -> float:
+    """The library yardstick for K7: its 25 int8 limb dots alone (no limb
+    split, no recombination) through `torch._int_mm`, median of 20."""
+    from tapstark_torch.poly import matmul_ntt as mm
+
+    limbs_w = torch.from_numpy(mm.w_matrix_limbs(log_r, inverse)).to(x.device)
+    limbs_x = [((x >> (7 * b)) & 0x7F).to(torch.int8) for b in range(5)]
+    return median_ms(lambda: [torch._int_mm(limbs_w[a], limbs_x[b]) for a in range(5) for b in range(5)], 20)
+
+
+def check_matmul_kernel(dev, stats: dict) -> None:
+    """K7's counterpart against its plain version at every MATMUL_SHAPES
+    entry, in both directions; the first shape's times go to the JSON line,
+    with the 25 limb dots through `torch._int_mm` as the library time."""
+    from tapstark_torch.field.constants import P
+    from tapstark_torch.poly import matmul_ntt as mm
+
+    rng = np.random.default_rng(6)
+    for i, (log_r, b, with_tw) in enumerate(MATMUL_SHAPES):
+        x = torch.from_numpy(rng.integers(0, P, (1 << log_r, b)).astype(np.int32)).to(dev)  # canonical
+        tw = _mont_on(dev, rng, 1 << log_r, b) if with_tw else None
+        for inverse in (False, True):
+            where = f"R=2^{log_r} B={b} twiddle={with_tw} inverse={inverse}"
+            err = compare("mod_matmul", mm.mod_matmul(x, log_r, inverse, tw),
+                          mm.mod_matmul_plain(x, log_r, inverse, tw), where)
+            report = i == 0 and inverse
+            record(stats, "mod_matmul", err, lambda: mm.mod_matmul(x, log_r, inverse, tw),
+                   lambda: mm.mod_matmul_plain(x, log_r, inverse, tw), where,
+                   matmul_bound(log_r, b, with_tw), report)
+            if report:
+                lib_ms = int_mm_dots_ms(x, log_r, inverse)
+                stats["mod_matmul"]["library_ms"] = lib_ms
+                print(f"library: the 25 limb dots alone through torch._int_mm at {where}: {lib_ms:.4f} ms")
 
 
 def check_sha_kernels(dev, stats: dict) -> None:
@@ -289,6 +396,70 @@ def check_commits_on_card(dev) -> None:
               f"{len(queries)} openings equal; card commit {t1 - t0:.3f} s, host commit {t2 - t1:.3f} s")
 
 
+def check_lde_routes(dev) -> dict:
+    """The two routes beside the fused one, word for word against it at
+    their shapes: the blocks route (K3/K4's counterparts) at 2^22 x 2,
+    blowup 4, and the limb-matmul LDE (K7's) at 2^20 x 2, blowup 4, each
+    with the launch counts read around it. The limb-matmul route is also
+    timed against the fused one (chip_study.py times the blocks route).
+    Returns the limb-matmul route's counts (K7's path)."""
+    from tapstark_torch.field.constants import MULT_GENERATOR as shift
+    from tapstark_torch.poly import cols_ntt, cuda_ntt
+    from tapstark_torch.poly import matmul_ntt as mm
+
+    rng = np.random.default_rng(7)
+    routes = {"blocks": cols_ntt.coset_lde_blocks, "limb matmul": mm.coset_lde_batch_matmul}
+    counts = {}
+    for log_n, route in LDE_ROUTES:
+        fn = routes[route]
+        evals = _mont_on(dev, rng, 1 << log_n, 2)
+        want = cuda_ntt.coset_lde_batch_cuda(evals, 2, shift)
+        for module in (cuda_ntt, cols_ntt, mm):
+            module.reset_launch_counts()
+        got = fn(evals, 2, shift)
+        torch.cuda.synchronize()
+        counts[route] = {**cuda_ntt.launches, **cols_ntt.launches, **mm.launches}
+        compare(f"{route} LDE", got, want, f"2^{log_n} x 2, blowup 4")
+        line = f"{route} LDE 2^{log_n} x 2 blowup 4: equal to the fused route"
+        if route == "limb matmul":
+            ms = median_ms(lambda: fn(evals, 2, shift), 5)
+            fused_ms = median_ms(lambda: cuda_ntt.coset_lde_batch_cuda(evals, 2, shift), 5)
+            line += f"; {ms:.3f} ms, fused route {fused_ms:.3f} ms"
+        print(f"{line}; launches {counts[route]}", flush=True)
+        del evals, want, got
+    if counts["limb matmul"]["mod_matmul"] == 0:
+        raise AssertionError("the limb-matmul LDE never launched its kernel")
+    return counts["limb matmul"]
+
+
+def run_prove(name: str, dev, cfg: dict) -> dict:
+    """One prove and verify with spans on and every launch count reset just
+    before it; prints the run and returns the counts read just after."""
+    from tapstark_torch.hashes import sha256_device
+    from tapstark_torch.poly import cols_ntt, cuda_ntt
+    from tapstark_torch.poly import matmul_ntt as mm
+    from tapstark_torch.utils import profiling
+
+    modules = (cuda_ntt, cols_ntt, sha256_device, mm)
+    profiling.reset()
+    profiling.enable()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for module in modules:
+        module.reset_launch_counts()
+    data, witness, t_prove, t_verify = prove_fibonacci(device=dev, **cfg)
+    launches = {k: v for module in modules for k, v in module.launches.items()}
+    profiling.enable(False)
+    print(
+        f"{name}: fibonacci 2^{cfg['log_n']} rows: prove {t_prove:.3f} s, verify {t_verify:.3f} s "
+        f"(accepted), proof {len(data)} bytes sha256 {hashlib.sha256(data).hexdigest()} witness {witness}"
+    )
+    for span, r in profiling.report().items():
+        print(f"phase {span}: {r['total_s']:.3f} s over {r['calls']} call(s)")
+    print(f"launches {launches}")
+    print(f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -321,10 +492,15 @@ def main() -> int:
     phase("kernels vs plain")
     stats: dict = {}
     check_lde_kernels(dev, stats)
+    check_cols_kernels(dev, stats)
+    check_matmul_kernel(dev, stats)
     check_sha_kernels(dev, stats)
 
     phase("commits: card vs host engine")
     check_commits_on_card(dev)
+
+    phase("lde routes: blocks 2^22 and limb matmul 2^20 vs fused")
+    path_launches = {"matmul lde 2^20": check_lde_routes(dev)}
 
     phase("golden proof on cuda")
     data, witness, t_prove, t_verify = prove_fibonacci(3, 2, 28, 8, dev)
@@ -333,29 +509,19 @@ def main() -> int:
     if (sha, len(data), witness) != (GOLDEN_PROOF_SHA256, GOLDEN_PROOF_LEN, GOLDEN_POW_WITNESS):
         raise AssertionError("golden proof bytes differ from the frozen ones")
 
-    phase("north-star prove on cuda")
-    from tapstark_torch.hashes import sha256_device
-    from tapstark_torch.poly import cuda_ntt
-    from tapstark_torch.utils import profiling
+    phase("north-star prove on cuda (fused LDE route)")
+    launches = path_launches["prove 2^20"] = run_prove("north star", dev, NORTH_STAR)
+    for name in ("lde_inverse", "lde_forward", "sha256_compress", "tapbranch"):
+        if launches[name] == 0:
+            raise AssertionError(f"{name} was never launched on the north-star path: {launches}")
 
-    profiling.reset()
-    profiling.enable()
-    torch.cuda.reset_peak_memory_stats(dev)
-    cuda_ntt.reset_launch_counts()
-    sha256_device.reset_launch_counts()
-    data, witness, t_prove, t_verify = prove_fibonacci(device=dev, **NORTH_STAR)
-    launches = {**cuda_ntt.launches, **sha256_device.launches}
-    profiling.enable(False)
-    print(
-        f"fibonacci 2^{NORTH_STAR['log_n']} rows: prove {t_prove:.3f} s, verify {t_verify:.3f} s "
-        f"(accepted), proof {len(data)} bytes sha256 {hashlib.sha256(data).hexdigest()} witness {witness}"
-    )
-    for name, r in profiling.report().items():
-        print(f"phase {name}: {r['total_s']:.3f} s over {r['calls']} call(s)")
-    print(f"launches {launches}")
-    if min(launches[name] for name, _, _ in KERNELS) == 0:
-        raise AssertionError(f"a kernel of the path was never launched: {launches}")
-    print(f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    phase("2^22 prove on cuda (blocks LDE route)")
+    launches = path_launches["prove 2^22"] = run_prove("blocks route", dev, BLOCKS_PROVE)
+    for name in ("dit_cols", "dif_cols", "sha256_compress", "tapbranch"):
+        if launches[name] == 0:
+            raise AssertionError(f"{name} was never launched on the 2^22 path: {launches}")
+    if launches["lde_inverse"] or launches["lde_forward"]:
+        raise AssertionError(f"the fused LDE kernels ran on the 2^22 path: {launches}")
 
     loaded = [
         m for m in sys.modules
@@ -370,15 +536,18 @@ def main() -> int:
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": launches[name],
+            "launches": path_launches[path][name],
+            "path": path,
             "max_abs_err": stats[name]["max_abs_err"],
             "ms": stats[name]["ms"],
             "plain_ms": stats[name]["plain_ms"],
             "bound_ms": stats[name]["bound_ms"],
             "bound_by": stats[name]["bound_by"],
-            "library_ms": None,  # no PyTorch call computes a modular NTT or SHA-256
+            # no PyTorch call computes a modular NTT or SHA-256; K7's is its
+            # limb dots alone through torch._int_mm
+            "library_ms": stats[name].get("library_ms"),
         }
-        for name, replaces, source in KERNELS
+        for name, replaces, source, path in KERNELS
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

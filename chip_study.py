@@ -6,6 +6,8 @@
 out, for PERF.md:
 
 - the SHA-256 kernels alone at the north star's largest shapes;
+- the two coset-LDE routes at 2^22 and 2^23 rows: the fused halves (K1/K2's
+  counterparts) against the four-step blocks route (K3/K4's);
 - the leaf-suffix builder (plain torch, no kernel of its own) on one
   north-star trace-commit shard;
 - one north-star prove under `torch.profiler`: the card's busy share and
@@ -30,6 +32,28 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 FRI_TAIL_LOG_HALVES = [8, 10, 12, 13, 14, 16]
+ROUTE_LOG_NS = [22, 23]  # width 2, blowup 4
+
+
+def lde_routes(dev) -> None:
+    """`coset_lde_batch_cuda` (fused halves) against `coset_lde_blocks`
+    (column NTTs) on the same input: median of 10 CUDA-event times each,
+    measured in turns (fused, blocks, blocks, fused), words equal."""
+    from tapstark_torch.field.constants import MULT_GENERATOR as shift
+    from tapstark_torch.poly import cols_ntt, cuda_ntt
+
+    rng = np.random.default_rng(8)
+    for log_n in ROUTE_LOG_NS:
+        evals = smoke._mont_on(dev, rng, 1 << log_n, 2)
+        fused = lambda: cuda_ntt.coset_lde_batch_cuda(evals, 2, shift)  # noqa: E731
+        blocks = lambda: cols_ntt.coset_lde_blocks(evals, 2, shift)  # noqa: E731
+        smoke.compare("blocks route", blocks(), fused(), f"2^{log_n} x 2")
+        times = {"fused": [], "blocks": []}
+        for name in ("fused", "blocks", "blocks", "fused"):
+            times[name].append(smoke.median_ms(fused if name == "fused" else blocks, 10))
+        print(f"lde routes 2^{log_n} x 2 blowup 4: fused {times['fused']} ms, blocks {times['blocks']} ms "
+              f"(medians of 10, in turns); equal")
+        del evals
 
 
 def kernels_full_size(dev) -> None:
@@ -149,6 +173,8 @@ def main() -> int:
     _build.load_library()
     smoke.phase("kernels at the north star's largest shapes")
     kernels_full_size(dev)
+    smoke.phase("coset LDE routes: fused vs blocks")
+    lde_routes(dev)
     smoke.phase("leaf-suffix builder")
     suffix_builder(dev)
     smoke.phase("card busy share (torch.profiler)")

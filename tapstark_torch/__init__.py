@@ -14,8 +14,10 @@ symbolic degrees) and airs/ (Fibonacci, MulAir).
 
 Carried here as twins of modules whose reference imports jax:
   field/device.py            Montgomery BabyBear / EF4 ops on tensors
-  poly/                      NTT, coset LDE (CUDA kernels in poly/cuda_ntt.py),
-                             domains, interpolation, FRI fold
+  poly/                      NTT, coset LDE routes (CUDA kernels in
+                             poly/cuda_ntt.py, poly/cols_ntt.py and
+                             poly/matmul_ntt.py), domains, interpolation,
+                             FRI fold
   hashes/sha256_device.py    SHA-256 compressions and TapBranch nodes
                              (CUDA kernels)
   commit/device_commit.py    taptree commits where the matrices' tensors live

@@ -2,7 +2,7 @@
 
 Every `tapstark_torch/csrc/*.cu` is compiled at first use, with `nvcc`, into
 one shared library with a plain C interface under `tapstark_torch/_build/`
-(named by a hash of the sources, so an edited source rebuilds), and bound
+(named by a hash of the sources and headers, so an edited file rebuilds), and bound
 with ctypes. No PyTorch headers are compiled, which keeps the build to
 seconds. A failed build raises.
 """
@@ -45,6 +45,10 @@ def sources() -> list[str]:
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
 
 
+def headers() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     ptr, i32, u32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_longlong
     lib.tapstark_lde_constants.argtypes = [ptr]
@@ -61,11 +65,21 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.tapstark_sha256_compress.restype = i32
     lib.tapstark_tapbranch.argtypes = [ptr, i64, i64, ptr, i64, i64, i64, ptr, ptr]
     lib.tapstark_tapbranch.restype = i32
+    lib.tapstark_ntt_cols_max_log_r.argtypes = []
+    lib.tapstark_ntt_cols_max_log_r.restype = i32
+    lib.tapstark_ntt_cols.argtypes = [ptr, ptr, ptr, i32, i64, i32, ptr]
+    lib.tapstark_ntt_cols.restype = i32
+    lib.tapstark_matmul_constants.argtypes = [ptr]
+    lib.tapstark_matmul_constants.restype = i32
+    lib.tapstark_limb_matmul.argtypes = [ptr, ptr, ptr, ptr, i32, i64, ptr]
+    lib.tapstark_limb_matmul.restype = i32
 
 
 def _check_constants(lib: ctypes.CDLL) -> None:
     """The kernels' baked constants against the host's."""
     from .hashes.sha256_device import _K, _tapbranch_block2_round_consts, tag_midstate_words
+    from .poly.cols_ntt import MAX_LOG_R
+    from .poly.matmul_ntt import shift_consts_mont
 
     consts = (ctypes.c_uint32 * 2)()
     lib.tapstark_lde_constants(consts)
@@ -78,6 +92,14 @@ def _check_constants(lib: ctypes.CDLL) -> None:
     want = [*tag_midstate_words(b"TapBranch"), *_tapbranch_block2_round_consts(), *_K]
     if list(sha) != [int(x) for x in want]:
         raise RuntimeError("SHA-256 kernel constants differ from the host's")
+    mm = (ctypes.c_uint32 * 11)()
+    err = lib.tapstark_matmul_constants(mm)
+    if err != 0:
+        raise RuntimeError(f"reading the limb-matmul kernel constants: CUDA error {err}")
+    if list(mm) != [P, MU, *(int(c) for c in shift_consts_mont())]:
+        raise RuntimeError(f"limb-matmul kernel constants {list(mm)} differ from the host's")
+    if lib.tapstark_ntt_cols_max_log_r() != MAX_LOG_R:
+        raise RuntimeError("column-NTT kernel's largest log R differs from cols_ntt.MAX_LOG_R")
 
 
 def load_library() -> ctypes.CDLL:
@@ -87,7 +109,7 @@ def load_library() -> ctypes.CDLL:
         return _lib
     srcs = sources()
     h = hashlib.sha256()
-    for path in srcs:
+    for path in srcs + headers():
         with open(path, "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())

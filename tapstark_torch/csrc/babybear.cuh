@@ -1,0 +1,38 @@
+// BabyBear arithmetic shared by the port's NTT kernels (coset_lde.cu,
+// ntt_cols.cu, matmul_ntt.cu).
+//
+// Field words are Montgomery form (x * 2^32 mod p) or canonical values in
+// uint32, p = 15*2^27+1, exactly the words of tapstark_torch.field.device.
+// A product is one 32x32->64 multiply and a REDC with MU = -p^{-1} mod 2^32
+// (tapstark_torch/field/constants.py) instead of the TPU's 16-bit limb
+// products; every result is in [0, p).
+
+#pragma once
+
+#include <cstdint>
+
+namespace {
+
+constexpr uint32_t kP = 0x78000001u;
+constexpr uint32_t kMu = 0x77ffffffu;  // -p^{-1} mod 2^32
+
+// a * b * 2^-32 mod p, for a * b < p * 2^32.
+__device__ __forceinline__ uint32_t mont_mul(uint32_t a, uint32_t b) {
+  const uint64_t t = static_cast<uint64_t>(a) * b;
+  const uint32_t lo = static_cast<uint32_t>(t);
+  const uint32_t hi = static_cast<uint32_t>(t >> 32);
+  const uint32_t m = lo * kMu;
+  const uint32_t u = hi + __umulhi(m, kP) + (lo != 0u);
+  return u >= kP ? u - kP : u;
+}
+
+__device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b) {
+  const uint32_t s = a + b;
+  return s >= kP ? s - kP : s;
+}
+
+__device__ __forceinline__ uint32_t sub_mod(uint32_t a, uint32_t b) {
+  return a >= b ? a - b : a - b + kP;
+}
+
+}  // namespace

@@ -10,10 +10,8 @@
 //                   coset evaluations.
 // They compute what K1 and K2 compute; the data movement is this card's.
 //
-// Field words are Montgomery form (x * 2^32 mod p) in uint32, p = 15*2^27+1,
-// exactly the words of tapstark.field.device. Products use one 32x32->64
-// multiply and a REDC with MU = -p^{-1} mod 2^32 (tapstark/field/constants.py)
-// instead of the TPU's 16-bit limb products; every stored word is in [0, p).
+// Field words and products are those of babybear.cuh; every stored word is
+// in [0, p).
 //
 // What bounds it. A butterfly is one Montgomery product (mul.wide, mul.lo,
 // mul.hi, a few adds and selects) plus an add and a sub: ~15 integer
@@ -45,30 +43,12 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "babybear.cuh"
+
 namespace {
 
-constexpr uint32_t kP = 0x78000001u;
-constexpr uint32_t kMu = 0x77ffffffu;  // -p^{-1} mod 2^32
-constexpr int kMaxPassBits = 10;       // stages per pass
-constexpr int kMaxSmemLog = 13;        // 2^13 words = 32 KiB of shared memory
-
-__device__ __forceinline__ uint32_t mont_mul(uint32_t a, uint32_t b) {
-  const uint64_t t = static_cast<uint64_t>(a) * b;
-  const uint32_t lo = static_cast<uint32_t>(t);
-  const uint32_t hi = static_cast<uint32_t>(t >> 32);
-  const uint32_t m = lo * kMu;
-  const uint32_t u = hi + __umulhi(m, kP) + (lo != 0u);
-  return u >= kP ? u - kP : u;
-}
-
-__device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b) {
-  const uint32_t s = a + b;
-  return s >= kP ? s - kP : s;
-}
-
-__device__ __forceinline__ uint32_t sub_mod(uint32_t a, uint32_t b) {
-  return a >= b ? a - b : a - b + kP;
-}
+constexpr int kMaxPassBits = 10;  // stages per pass
+constexpr int kMaxSmemLog = 13;   // 2^13 words = 32 KiB of shared memory
 
 struct PassArgs {
   const uint32_t* src;

@@ -1,0 +1,240 @@
+"""Column NTTs and the four-step LDE routes outside the fused range (twin
+of the non-fused routes of `tapstark/poly/pallas_ntt.py`).
+
+- `dit_cols` replaces `_butterfly_kernel` (K3, via `_ntt_cols_pallas`):
+  the transform down axis 0 of an (R, B) Montgomery matrix, rows
+  bit-reversed in, natural out, no 1/n.
+- `dif_cols` replaces `_dif_butterfly_kernel` (K4, via `_dif_cols_pallas`):
+  natural in, bit-reversed out.
+
+Each wrapper runs its kernel (`tapstark_torch/csrc/ntt_cols.cu`) for a
+CUDA tensor and its plain version for a CPU tensor, and raises for
+anything else. The pipelines around them are plain torch on the tensor's
+device, as in the reference: bit-reversal gathers, outer twiddles,
+transposes and 1/n.
+
+- `ntt_cols_fourstep` is `ntt_pallas`; `intt_to_bitrev` and
+  `ntt_from_bitrev` are `intt_to_bitrev_pallas` and
+  `ntt_from_bitrev_pallas`;
+- `coset_lde_padded` is `coset_lde_batch_pallas` (the zero-padded LDE);
+- `coset_lde_blocks` is `coset_lde_batch_pallas_blocks` (`blow` pre-scaled
+  n-point NTTs as one NTT of width blow·w), which `coset_lde_batch_auto`
+  takes for every trace outside 2^8–2^21 rows.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..field.constants import P, two_adic_generator
+from ..field.device import fp_const, fp_mul
+from ..utils import log2_strict
+from .cuda_ntt import _check_cuda, _raise_on, _stream_ptr, block_scales
+from .ntt import _butterfly_stages, bit_reverse_rows, intt, ntt, scale_by_shift_powers
+from .powers import bitrev_indices_dev, geom_powers_mont_dev
+
+# The largest log R one kernel launch takes (csrc/ntt_cols.cu kMaxLogR;
+# the loader checks the two agree). The four-step split of 2^27, the
+# field's largest two-adic size, is 14 + 13.
+MAX_LOG_R = 14
+
+# Launches of each kernel since the last reset (one per wrapper call that
+# reached the card).
+launches = {"dit_cols": 0, "dif_cols": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+@functools.lru_cache(maxsize=None)
+def packed_twiddles_shoup(log_r: int, inverse: bool) -> np.ndarray:
+    """(2, log_r, R/2) uint32: canonical stage twiddles (stage s holds the
+    first 2^(s-1) powers of the order-2^s root, or of its inverse) and their
+    Shoup companions floor(w·2^32 / p)."""
+    half = max(1 << (log_r - 1), 1)
+    out = np.zeros((2, max(log_r, 1), half), dtype=np.uint32)
+    for s in range(1, log_r + 1):
+        g = two_adic_generator(s)
+        if inverse:
+            g = pow(g, P - 2, P)
+        acc = 1
+        for i in range(1 << (s - 1)):
+            out[0, s - 1, i] = acc
+            out[1, s - 1, i] = (acc << 32) // P
+            acc = acc * g % P
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _twiddles_dev(log_r: int, inverse: bool, device) -> torch.Tensor:
+    return torch.from_numpy(packed_twiddles_shoup(log_r, inverse).view(np.int32)).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def outer_twiddle_mont(log_r: int, log_c: int, inverse: bool, device) -> torch.Tensor:
+    """(R, C) Montgomery w_N^{k1·i2} (w_N^{-k1·i2} if inverse), N = R·C,
+    gathered from the N powers of w_N on `device`."""
+    w = two_adic_generator(log_r + log_c)
+    if inverse:
+        w = pow(w, P - 2, P)
+    powers = geom_powers_mont_dev(w, log_r + log_c, 1, device)
+    k1 = torch.arange(1 << log_r, dtype=torch.int64, device=device)
+    i2 = torch.arange(1 << log_c, dtype=torch.int64, device=device)
+    exps = (k1[:, None] * i2[None, :]) & ((1 << (log_r + log_c)) - 1)
+    return powers[exps]
+
+
+@functools.lru_cache(maxsize=None)
+def outer_twiddle_brv_rows(log_r: int, log_c: int, inverse: bool, device) -> torch.Tensor:
+    """(R, C): T[p1, i2] = w^{±brv_R(p1)·i2} (rows bit-reversed)."""
+    return outer_twiddle_mont(log_r, log_c, inverse, device).index_select(
+        0, bitrev_indices_dev(log_r, device)
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def outer_twiddle_brv_cols(log_r: int, log_c: int, inverse: bool, device) -> torch.Tensor:
+    """(R, C): T[k1, p2] = w^{±k1·brv_C(p2)} (columns bit-reversed)."""
+    return outer_twiddle_mont(log_r, log_c, inverse, device).index_select(
+        1, bitrev_indices_dev(log_c, device)
+    ).contiguous()
+
+
+def split(log_n: int) -> tuple[int, int]:
+    """(log R, log C) of the four-step split: R takes the odd bit."""
+    log_c = log_n // 2
+    return log_n - log_c, log_c
+
+
+def dit_cols_plain(mat: torch.Tensor, log_r: int, inverse: bool) -> torch.Tensor:
+    return _butterfly_stages(mat, log_r, inverse)
+
+
+def dif_cols_plain(mat: torch.Tensor, log_r: int, inverse: bool) -> torch.Tensor:
+    return bit_reverse_rows(_butterfly_stages(bit_reverse_rows(mat), log_r, inverse))
+
+
+def _cols(mat: torch.Tensor, log_r: int, inverse: bool, dif: bool) -> torch.Tensor:
+    name = "dif_cols" if dif else "dit_cols"
+    if mat.dim() != 2 or mat.shape[0] != 1 << log_r:
+        raise ValueError(f"{name}: expected {1 << log_r} rows, got shape {tuple(mat.shape)}")
+    if mat.device.type == "cpu":
+        return (dif_cols_plain if dif else dit_cols_plain)(mat, log_r, inverse)
+    if mat.device.type != "cuda":
+        raise ValueError(f"{name}: no path for device {mat.device}")
+    _check_cuda(mat, name)
+    if not 1 <= log_r <= MAX_LOG_R or mat.shape[1] < 1:
+        raise ValueError(f"{name}: shape {tuple(mat.shape)} unsupported (1 <= log R <= {MAX_LOG_R})")
+    from .._build import load_library
+
+    lib = load_library()
+    dev = mat.device
+    tw = _twiddles_dev(log_r, inverse, dev)
+    out = torch.empty_like(mat)
+    with torch.cuda.device(dev):
+        err = lib.tapstark_ntt_cols(
+            mat.data_ptr(), out.data_ptr(), tw.data_ptr(), log_r, mat.shape[1], int(dif),
+            _stream_ptr(dev),
+        )
+    _raise_on(err, name)
+    launches[name] += 1
+    return out
+
+
+def dit_cols(mat: torch.Tensor, log_r: int, inverse: bool) -> torch.Tensor:
+    """Column NTTs of an (R, B) Montgomery matrix: rows bit-reversed in,
+    natural out, no 1/n."""
+    return _cols(mat, log_r, inverse, dif=False)
+
+
+def dif_cols(mat: torch.Tensor, log_r: int, inverse: bool) -> torch.Tensor:
+    """Column NTTs of an (R, B) Montgomery matrix: natural in, rows
+    bit-reversed out, no 1/n."""
+    return _cols(mat, log_r, inverse, dif=True)
+
+
+def ntt_cols_fourstep(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+    """NTT (iNTT) of an (n, w) Montgomery matrix, natural → natural order
+    (twin of `ntt_pallas`): bitrev_R, `dit_cols` over R, outer twiddle,
+    transpose, bitrev_C, `dit_cols` over C."""
+    n, w = x.shape
+    log_n = log2_strict(n)
+    if log_n <= 1:
+        return intt(x) if inverse else ntt(x)
+    log_r, log_c = split(log_n)
+    r, c = 1 << log_r, 1 << log_c
+    dev = x.device
+    m = x.reshape(r, c * w).index_select(0, bitrev_indices_dev(log_r, dev))
+    a = dit_cols(m, log_r, inverse)  # A[k1, (i2, w)]
+    a = fp_mul(a.reshape(r, c, w), outer_twiddle_mont(log_r, log_c, inverse, dev)[:, :, None])
+    b = a.transpose(0, 1).reshape(c, r * w).index_select(0, bitrev_indices_dev(log_c, dev))
+    out = dit_cols(b, log_c, inverse).reshape(n, w)  # flat k2·R + k1 = k
+    if inverse:
+        out = fp_mul(out, fp_const(pow(n, P - 2, P)))
+    return out
+
+
+def intt_to_bitrev(evals: torch.Tensor) -> torch.Tensor:
+    """(n, w) natural evaluations → coefficients in bitrev_n order, times
+    1/n (twin of `intt_to_bitrev_pallas`)."""
+    n, w = evals.shape
+    log_n = log2_strict(n)
+    log_r, log_c = split(log_n)
+    r, c = 1 << log_r, 1 << log_c
+    dev = evals.device
+    a = dif_cols(evals.reshape(r, c * w).contiguous(), log_r, True)  # A[p1, (i2, w)]
+    a = fp_mul(a.reshape(r, c, w), outer_twiddle_brv_rows(log_r, log_c, True, dev)[:, :, None])
+    b = a.transpose(0, 1).reshape(c, r * w).contiguous()  # B[i2, (p1, w)]
+    y = dif_cols(b, log_c, True)  # Y[p2, (p1, w)]
+    out = y.reshape(c, r, w).transpose(0, 1).reshape(n, w)  # flat p1·C + p2
+    return fp_mul(out, fp_const(pow(n, P - 2, P)))
+
+
+def ntt_from_bitrev(coeffs_brv: torch.Tensor) -> torch.Tensor:
+    """(n, w) coefficients in bitrev_n order → natural evaluations (twin of
+    `ntt_from_bitrev_pallas`)."""
+    n, w = coeffs_brv.shape
+    log_n = log2_strict(n)
+    log_r, log_c = split(log_n)
+    r, c = 1 << log_r, 1 << log_c
+    dev = coeffs_brv.device
+    # flat bitrev_n index brv_C(i2)·R + brv_R(i1): view (C, R), swap to (R, C)
+    m = coeffs_brv.reshape(c, r, w).transpose(0, 1).reshape(r, c * w).contiguous()
+    a = dit_cols(m, log_r, False)  # A[k1, (brv_C(i2), w)]
+    a = fp_mul(a.reshape(r, c, w), outer_twiddle_brv_cols(log_r, log_c, False, dev)[:, :, None])
+    b = a.transpose(0, 1).reshape(c, r * w).contiguous()  # B[brv_C(i2), (k1, w)]
+    return dit_cols(b, log_c, False).reshape(n, w)  # flat k2·R + k1 = k
+
+
+def coset_lde_padded(evals: torch.Tensor, log_blowup: int, shift: int) -> torch.Tensor:
+    """Coset LDE by iNTT, coset shift, zero padding and a big NTT, both
+    four-step (twin of `coset_lde_batch_pallas`)."""
+    n, w = evals.shape
+    coeffs = scale_by_shift_powers(ntt_cols_fourstep(evals, inverse=True), shift)
+    padded = torch.zeros((n << log_blowup, w), dtype=torch.int32, device=evals.device)
+    padded[:n] = coeffs
+    return ntt_cols_fourstep(padded)
+
+
+def coset_lde_blocks(evals: torch.Tensor, log_blowup: int, shift: int) -> torch.Tensor:
+    """Coset LDE with no zero padding (twin of
+    `coset_lde_batch_pallas_blocks`): with N = blow·n and big-domain index
+    k = blow·m + rb, shift·w_N^k = (shift·w_N^rb)·w_n^m, so output rows
+    rb::blow are the n-point NTT of the coefficients scaled by the powers of
+    shift·w_N^rb. All blow blocks run as one NTT of width blow·w. Below
+    2^4 rows it takes the padded route, as the reference does."""
+    n, w = evals.shape
+    log_n = log2_strict(n)
+    if log_n < 4:
+        return coset_lde_padded(evals, log_blowup, shift)
+    blow = 1 << log_blowup
+    coeffs_brv = intt_to_bitrev(evals)
+    scales = block_scales(log_n, log_blowup, shift % P, evals.device)  # (blow, n)
+    scaled = fp_mul(coeffs_brv[:, None, :], scales.T[:, :, None])  # (n, blow, w)
+    y = ntt_from_bitrev(scaled.reshape(n, blow * w))  # y[m, (rb, w)]
+    return y.reshape(n * blow, w)

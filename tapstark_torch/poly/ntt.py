@@ -5,8 +5,9 @@ A polynomial batch is an (n, w) int32 Montgomery tensor: n evaluations or
 coefficients down axis 0, w independent columns. These are the plain
 versions: natural order in and out, an explicit bit-reversal gather, then
 log_n butterfly stages of eager tensor ops. `coset_lde_batch_auto` is the
-entry point the PCS calls: on a CUDA tensor it runs the hand-written
-kernels of `poly/cuda_ntt.py`, on a CPU tensor the plain pipeline.
+entry point the PCS calls: it picks a route by log_n alone, as the JAX
+package's TPU path does, and each route's kernel wrappers run their CUDA
+kernels for a CUDA tensor and their plain versions for a CPU tensor.
 """
 
 from __future__ import annotations
@@ -82,12 +83,18 @@ def coset_lde_batch(evals: torch.Tensor, log_blowup: int, shift: int) -> torch.T
 
 
 def coset_lde_batch_auto(evals: torch.Tensor, log_blowup: int, shift: int) -> torch.Tensor:
-    """coset_lde_batch through the CUDA kernels for a CUDA tensor, through
-    the plain pipeline for a CPU tensor; any other device raises."""
-    if evals.device.type == "cuda":
+    """coset_lde_batch by the route `coset_lde_batch_pallas_fused` takes
+    (tapstark/poly/pallas_ntt.py:517-520), on every device: 2^8–2^21 rows
+    through the fused halves (`cuda_ntt.coset_lde_batch_cuda`, K1/K2's
+    counterparts), any other height through the four-step blocks route
+    (`cols_ntt.coset_lde_blocks`, K3/K4's; padded below 2^4 rows). Any
+    device but the CPU and CUDA raises."""
+    if evals.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"coset_lde_batch_auto: no path for device {evals.device}")
+    if 8 <= log2_strict(evals.shape[0]) <= 21:
         from .cuda_ntt import coset_lde_batch_cuda
 
         return coset_lde_batch_cuda(evals, log_blowup, shift)
-    if evals.device.type == "cpu":
-        return coset_lde_batch(evals, log_blowup, shift)
-    raise ValueError(f"coset_lde_batch_auto: no path for device {evals.device}")
+    from .cols_ntt import coset_lde_blocks
+
+    return coset_lde_blocks(evals, log_blowup, shift)
