@@ -4,14 +4,16 @@
 
 Builds the port's CUDA kernels from `tapstark_torch/csrc/`, holds each one
 against its plain PyTorch version on the card (exact equality: the words
-are integers), holds a north-star trace-commit shard and an FRI layer
-hashed on the card against the host SHA-NI engine, holds the blocks LDE
+are integers), holds a north-star trace-commit shard, an FRI layer and two
+small trees hashed on the card against the host SHA-NI engine, holds the blocks LDE
 route (2^22 rows) and the limb-matmul LDE (2^20 rows) against the fused
 route, proves the frozen golden Fibonacci configuration on the card and
 checks its proof bytes, then proves and verifies Fibonacci at 2^20 rows
 (the north star, on the fused LDE route) and at 2^22 rows (the blocks
 route), blowup 4, 28 queries and 8 PoW bits, through `tapstark_torch`'s
-entry points, with the kernels' launch counts read around each run.
+entry points, with the kernels' launch counts read around each run, and
+holds both proofs to the bytes frozen from the tree before the SHA-256
+kernels' redesign.
 (`chip_study.py` holds the longer measurements: full-size kernel times,
 the two LDE routes at 2^22 and 2^23 rows, the card's busy share, the FRI
 host-tail switch.)
@@ -43,6 +45,10 @@ import torch  # noqa: E402
 GOLDEN_PROOF_SHA256 = "73a2a6b32e057d641283f4eaaade5cf0c0616474bd5623f803dbf6d975bd2d36"
 GOLDEN_PROOF_LEN = 871117
 GOLDEN_POW_WITNESS = 198
+# (sha256, bytes, PoW witness) of the 2^20 and 2^22 proofs, frozen from a
+# run on an H100 of the tree before the SHA-256 kernels' redesign
+PROOF_2_20 = ("dd928dd5817e0f7843a90cdbdce3be9990182c238d87dbf21d197809eafb00e6", 4831029, 547)
+PROOF_2_22 = ("0ee2cad76352f0e86c973d5fcbf5c57f0220ee7be411b36766e0dd36aea66844", 5316053, 96)
 
 NORTH_STAR = dict(log_n=20, log_blowup=2, num_queries=28, pow_bits=8)
 # the next batch size up (bench_prover.py 22:2:28): above the fused LDE
@@ -50,12 +56,17 @@ NORTH_STAR = dict(log_n=20, log_blowup=2, num_queries=28, pow_bits=8)
 BLOCKS_PROVE = dict(log_n=22, log_blowup=2, num_queries=28, pow_bits=8)
 # (log_n, width, log_blowup): the path's shapes, the golden size, an odd log_n
 LDE_SHAPES = [(20, 2, 2), (20, 4, 2), (3, 2, 2), (11, 3, 2)]
-# SHA-256 check shapes: plain-form lanes (a power of two and a count that is
-# a multiple of no block size), and the leaf form (repetitions, leaves) with
-# 1 suffix block (trace and quotient commits) and 2 (the FRI layers)
+# SHA-256 check shapes: one-step lanes (a power of two and a count that is
+# a multiple of no block size); the leaf form (repetitions, leaves) with
+# 1 suffix block (trace and quotient commits) and 2 (the FRI layers),
+# hashing the 4 levels the commit hashes in the leaf launch; TapBranch
+# levels 4 -> 8 of a 2^20-leaf commit (28 x 2^16 nodes in); whole trees of
+# (repetitions, depth, suffix blocks) through the commit's launch plan
 SHA_LANES = [1 << 12, 4099]
 SHA_LEAF = (28, 1 << 16)
 SHA_LEAF_BLOCKS = [1, 2]
+SHA_LEVELS_IN = (28, 1 << 16)
+SHA_TREES = [(28, 5, 1), (3, 13, 2)]
 # column-NTT check shapes (log R, B): the 2^22 prove's (the inverse and
 # forward members of the trace's LDE, width 2, and of the quotient
 # chunk's, width 4), a lane count that is no multiple of the lane tile,
@@ -73,29 +84,39 @@ KERNELS = [  # name, replaced TPU kernel, source, path whose launches the JSON l
     ("lde_forward", "tapstark/poly/pallas_ntt.py:492", "tapstark_torch/csrc/coset_lde.cu", "prove 2^20"),  # K2
     ("dit_cols", "tapstark/poly/pallas_ntt.py:88", "tapstark_torch/csrc/ntt_cols.cu", "prove 2^22"),  # K3
     ("dif_cols", "tapstark/poly/pallas_ntt.py:219", "tapstark_torch/csrc/ntt_cols.cu", "prove 2^22"),  # K4
-    ("sha256_compress", "tapstark/hashes/sha256_device.py:76", "tapstark_torch/csrc/sha256.cu", "prove 2^20"),  # K5
-    ("tapbranch", "tapstark/hashes/sha256_device.py:354", "tapstark_torch/csrc/sha256.cu", "prove 2^20"),  # K6
+    ("tapleaf_subtrees", "tapstark/hashes/sha256_device.py:76", "tapstark_torch/csrc/sha256.cu", "prove 2^20"),  # K5
+    ("tapbranch_levels", "tapstark/hashes/sha256_device.py:354", "tapstark_torch/csrc/sha256.cu", "prove 2^20"),  # K6
     ("mod_matmul", "tapstark/poly/matmul_ntt.py:165", "tapstark_torch/csrc/matmul_ntt.cu", "matmul lde 2^20"),  # K7
 ]
 
 # Bounds. The card's peaks (NVIDIA H100 SXM, 700 W): 3.35 TB/s of device
 # memory and, for the 32-bit integer instructions the kernels run, one
 # instruction per lane per clock on all 128 lanes of an SM (its four
-# schedulers each issue one 32-lane warp instruction per clock; the int32
-# ALU pipe takes 64 lanes, IMAD-form adds and moves the FMA pipe):
+# schedulers each issue one 32-lane warp instruction per clock):
 # 132 SMs x 128 x 1.98 GHz = 33.5 T op/s, half the 67 TFLOP/s
-# float32 figure, which counts two flops per FMA.
+# float32 figure, which counts two flops per FMA. Of those lanes the int32
+# ALU pipe (funnel shifts, LOP3) has 64: 16.7 T op/s; IMAD-form adds,
+# shifts and multiplies take the FMA pipe, the other 64.
 MEM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 128 * 1.98e9
+ALU_OPS_PER_S = 132 * 64 * 1.98e9
 # dense int8 tensor-core rate (H100 SXM data sheet), two ops per MAC
 INT8_TENSOR_OPS_PER_S = 1979e12
 # 32-bit integer instructions per unit of work, counted from the kernels:
 OPS_BUTTERFLY = 15  # Montgomery product (mul.wide, mul.lo, mul.hi, adds, select) + add + sub
 OPS_MONT_MUL = 8  # a lone Montgomery product (scales, 1/n)
-# a SHA-256 round is 14 (six funnel-shift rotates, four LOP3, four IADD3),
-# a schedule word 10 (six rotates and shifts, two LOP3, two IADD3)
-OPS_COMPRESS = 64 * 14 + 48 * 10 + 8  # rounds, schedule words, feed-forward
-OPS_TAPBRANCH = 8 * 3 + OPS_COMPRESS + 64 * 14 + 8  # sort, compress, constant block
+# SHA-256, by the pipes that can issue each instruction: (ALU only: LOP3
+# logic and the sort's compares and selects; rotates: one funnel shift on
+# the ALU pipe, or two IMADs on the FMA pipe, x * 2^(32-n) + mulhi(x,
+# 2^(32-n)); shifts: one funnel shift, or one IMAD.HI; adds: IADD3 or
+# IMAD, either pipe). A round is four LOP3, six rotates and four adds; a
+# schedule word two LOP3, four rotates, two shifts and two adds; a
+# compression adds eight for its feed-forward; a TapBranch node sorts its
+# two digests (24), then compresses them and the constant block.
+SHA_ROUND, SHA_SCHEDULE = np.array([4, 6, 0, 4]), np.array([2, 4, 2, 2])
+SHA_FEED_FORWARD, SHA_SORT = np.array([0, 0, 0, 8]), np.array([24, 0, 0, 0])
+SHA_COMPRESS = 64 * SHA_ROUND + 48 * SHA_SCHEDULE + SHA_FEED_FORWARD
+SHA_TAPBRANCH = SHA_SORT + SHA_COMPRESS + 64 * SHA_ROUND + SHA_FEED_FORWARD
 OPS_LIMB_SPLIT = 10  # five shifts and five masks per input word of the limb matmul
 OPS_RECOMBINE = 9 * (OPS_MONT_MUL + 3)  # nine bucket products and modular adds per output
 
@@ -106,15 +127,51 @@ def bound(ops: float, nbytes: float) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_mem), "operations" if t_ops >= t_mem else "bytes"
 
 
-def leaf_bound(r: int, n: int, nb: int) -> tuple[float, str]:
-    """`sha256_compress` in the leaf form: R x N lanes of nb compressions;
-    suffix, remainder and midstates read once, digests written once."""
-    return bound(r * n * nb * OPS_COMPRESS, 4 * (16 * nb * n + 16 * nb * r + 8 * r + 8 * r * n))
+def alu_pipe_least(alu: float, rotates: float, shifts: float, adds: float) -> float:
+    """The fewest instructions the ALU pipe must issue, over every split of
+    the rotates, shifts and adds between the two 64-lane pipes: the ALU
+    pipe's share once neither pipe holds more than the other. Shifts and
+    adds move one for one; a rotate moved costs the FMA pipe two."""
+    fixed, free = alu + rotates, shifts + adds
+    if fixed <= free:
+        return (fixed + free) / 2
+    return fixed - min(rotates, (fixed - free) / 3)
 
 
-def tree_level_bound(m: int) -> tuple[float, str]:
-    """`tapbranch` on m nodes: two child digests read, one written."""
-    return bound(m * OPS_TAPBRANCH, 96 * m)
+def sha_bound(compressions: float, nodes: float, nbytes: float) -> tuple[float, str, dict]:
+    """(ms, what bounds it, the three times in ms) for SHA-256 work: the
+    larger of the bytes at 3.35 TB/s, all instructions at 33.5 T op/s and
+    the ALU-pipe instructions at 16.7 T op/s, these at the split of the
+    work between the pipes that needs the least time (`alu_pipe_least`;
+    the FMA pipe then issues as many, so the all-instructions time, taken
+    at the fewest instructions, never binds). `bound_by` says "operations"
+    for either of the last two; the dict names which."""
+    work = [float(x) for x in compressions * SHA_COMPRESS + nodes * SHA_TAPBRANCH]
+    times = {"bytes": 1e3 * nbytes / MEM_BYTES_PER_S, "operations": 1e3 * sum(work) / INT32_OPS_PER_S,
+             "alu pipe": 1e3 * alu_pipe_least(*work) / ALU_OPS_PER_S}
+    by = max(times, key=times.get)
+    return times[by], "bytes" if by == "bytes" else "operations", times
+
+
+def subtree_nodes(m: int, levels: int, write_first: int) -> tuple[int, int]:
+    """(TapBranch nodes, nodes written) of `levels` levels over m nodes."""
+    return (sum(m >> l for l in range(1, levels + 1)),
+            sum(m >> l for l in range(write_first, levels + 1)))
+
+
+def leaf_bound(r: int, n: int, nb: int, levels: int) -> tuple[float, str, dict]:
+    """`tapleaf_subtrees`: R x N lanes of nb compressions and the TapBranch
+    nodes of `levels` levels; suffix, remainder and midstates read once,
+    level `levels` written once."""
+    nodes, written = subtree_nodes(r * n, levels, levels)
+    return sha_bound(r * n * nb, nodes, 4 * (16 * nb * n + 16 * nb * r + 8 * r) + 32 * written)
+
+
+def levels_bound(r: int, n: int, levels: int, write_first: int) -> tuple[float, str, dict]:
+    """`tapbranch_levels` over (R, n) nodes: the level read once, the
+    levels from write_first written once."""
+    nodes, written = subtree_nodes(r * n, levels, write_first)
+    return sha_bound(0, nodes, 32 * (r * n + written))
 
 
 def lde_bounds(log_n: int, w: int, log_blowup: int) -> dict:
@@ -142,6 +199,26 @@ def matmul_bound(log_r: int, b: int, with_tw: bool) -> tuple[float, str]:
     t_int = r * b * (OPS_LIMB_SPLIT + OPS_RECOMBINE + (OPS_MONT_MUL if with_tw else 0)) / INT32_OPS_PER_S
     t_mem = (4 * r * b * (3 if with_tw else 2) + 5 * r * r) / MEM_BYTES_PER_S
     return 1e3 * max(t_mma, t_int, t_mem), "operations" if max(t_mma, t_int) >= t_mem else "bytes"
+
+
+def check_ptxas(report: str) -> None:
+    """Print ptxas's register and spill lines for each kernel; fail if a
+    SHA-256 kernel spills, or if the report lacks either of them."""
+    entry, entries, spills = "", [], []
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+            entries.append(entry)
+        elif "registers" in line or "spill" in line:
+            print(f"ptxas {entry}: {line.split(':', 1)[-1].strip()}")
+            if "spill" in line and ("0 bytes spill stores" not in line or "0 bytes spill loads" not in line):
+                spills.append((entry, line.strip()))
+    for kernel in ("tapleaf_subtrees", "tapbranch_levels"):
+        if not any(kernel in e for e in entries):
+            raise AssertionError(f"ptxas's report names no {kernel} kernel")
+    sha = [x for x in spills if "tapleaf" in x[0] or "tapbranch" in x[0]]
+    if sha:
+        raise AssertionError(f"SHA-256 kernels spill: {sha}")
 
 
 def phase(name: str) -> None:
@@ -217,6 +294,8 @@ def record(stats: dict, name: str, err: int, run_kernel, run_plain, where, bnd=N
     extra = ""
     if bnd is not None:
         extra = f", bound {bnd[0]:.4f} ms ({bnd[1]})"
+        if len(bnd) > 2:  # the SHA kernels' three times
+            extra += " = max(" + ", ".join(f"{k} {v:.4f}" for k, v in bnd[2].items()) + ")"
         if report:
             s.update(ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1])
     print(f"kernel {name} {where}: equal, {ms:.4f} ms, plain {plain_ms:.4f} ms{extra}", flush=True)
@@ -308,9 +387,14 @@ def check_matmul_kernel(dev, stats: dict) -> None:
 
 
 def check_sha_kernels(dev, stats: dict) -> None:
-    """K5/K6's counterparts against their plain versions: plain-form lanes,
-    the leaf form (R = 28 repetitions of 2^16 leaves, 1 and 2 suffix
-    blocks), and a TapBranch tree level read through strided children."""
+    """K5/K6's counterparts against their plain versions: the one-step forms
+    (`compress_wm`, `tapbranch_wm`, which run on the two kernels), the leaf
+    form with the leaf launch's levels, TapBranch levels 4 -> 8, and whole
+    trees through the commit's launch plan (`shard_trees_rep_group` on the
+    card against the same on CPU tensors, where it runs the plain
+    versions)."""
+    from tapstark_torch.commit import device_commit as dc
+    from tapstark_torch.commit.tcs import LEVEL_CUTOFF
     from tapstark_torch.hashes import sha256_device as sd
 
     gen = torch.Generator(device=dev)
@@ -321,44 +405,67 @@ def check_sha_kernels(dev, stats: dict) -> None:
 
     for m in SHA_LANES:
         state, block = words(8, m), words(32, m)  # two chained blocks per lane
-        where = f"M={m} nb=2"
-        err = compare("sha256_compress", sd.compress_wm(state, block), sd.compress_wm_plain(state, block), where)
-        record(stats, "sha256_compress", err, lambda: sd.compress_wm(state, block),
+        where = f"one-step M={m} nb=2"
+        err = compare("tapleaf_subtrees", sd.compress_wm(state, block), sd.compress_wm_plain(state, block), where)
+        record(stats, "tapleaf_subtrees", err, lambda: sd.compress_wm(state, block),
                lambda: sd.compress_wm_plain(state, block), where)
         h1, h2 = words(8, m), words(8, m)
         h2[:, ::3] = h1[:, ::3]  # equal pairs exercise the lexicographic tie
         h2[0, 1::3] = h1[0, 1::3]  # so do pairs that first differ past word 0
-        where = f"M={m}"
-        err = compare("tapbranch", sd.tapbranch_wm(h1, h2), sd.tapbranch_wm_plain(h1, h2), where)
-        record(stats, "tapbranch", err, lambda: sd.tapbranch_wm(h1, h2),
+        where = f"one-step M={m}"
+        err = compare("tapbranch_levels", sd.tapbranch_wm(h1, h2), sd.tapbranch_wm_plain(h1, h2), where)
+        record(stats, "tapbranch_levels", err, lambda: sd.tapbranch_wm(h1, h2),
                lambda: sd.tapbranch_wm_plain(h1, h2), where)
 
     r, n = SHA_LEAF
+    levels = sd.LEAF_LEVELS
     for nb in SHA_LEAF_BLOCKS:
         mids, suffix, rem = words(8, r), words(16 * nb, n), words(16 * nb, r)
-        where = f"leaf form R={r} N={n} nb={nb}"
-        err = compare("sha256_compress", sd.compress_wm(mids, suffix, rem),
-                      sd.compress_wm_plain(mids, suffix, rem), where)
-        # the JSON line reports the one-block form (its shape since the port's first SHA run)
-        bnd = leaf_bound(r, n, nb) if nb == 1 else None
-        record(stats, "sha256_compress", err, lambda: sd.compress_wm(mids, suffix, rem),
-               lambda: sd.compress_wm_plain(mids, suffix, rem), where, bnd)
+        where = f"leaf form R={r} N={n} nb={nb} levels={levels}"
+        err = compare("tapleaf_subtrees", sd.tapleaf_subtrees(mids, suffix, rem, levels),
+                      sd.tapleaf_subtrees_plain(mids, suffix, rem, levels), where)
+        # the JSON line reports the one-block form (the trace and quotient commits')
+        record(stats, "tapleaf_subtrees", err, lambda: sd.tapleaf_subtrees(mids, suffix, rem, levels),
+               lambda: sd.tapleaf_subtrees_plain(mids, suffix, rem, levels), where,
+               leaf_bound(r, n, nb, levels), nb == 1)
 
-    level = words(8, r * n)
-    children = level.view(8, -1, 2)
-    h1, h2 = children[:, :, 0], children[:, :, 1]
-    m = r * n // 2
-    where = f"tree level M={m} (strided children)"
-    err = compare("tapbranch", sd.tapbranch_wm(h1, h2), sd.tapbranch_wm_plain(h1, h2), where)
-    record(stats, "tapbranch", err, lambda: sd.tapbranch_wm(h1, h2),
-           lambda: sd.tapbranch_wm_plain(h1, h2), where, tree_level_bound(m))
+    r, n = SHA_LEVELS_IN
+    level = words(8, r, n)
+    level[:, :, 1::4] = level[:, :, 0::4]  # equal siblings: the lexicographic tie
+    k = LEVEL_CUTOFF - sd.LEAF_LEVELS
+    for write_first in (k, 1):  # the cutoff level only (reported), every level
+        where = f"levels R={r} n={n} levels={k} write_first={write_first}"
+        err = compare("tapbranch_levels", sd.tapbranch_levels(level, k, write_first),
+                      sd.tapbranch_levels_plain(level, k, write_first), where)
+        record(stats, "tapbranch_levels", err, lambda: sd.tapbranch_levels(level, k, write_first),
+               lambda: sd.tapbranch_levels_plain(level, k, write_first), where,
+               levels_bound(r, n, k, write_first), write_first == k)
+
+    rng = np.random.default_rng(9)
+    for r, depth, nb in SHA_TREES:
+        suffix = words(16 * nb, 1 << depth)
+        mids = rng.integers(0, 1 << 32, (r, 8), dtype=np.uint64).astype(np.uint32)
+        rems = rng.integers(0, 1 << 32, (r, 16 * nb), dtype=np.uint64).astype(np.uint32)
+        cutoff = min(LEVEL_CUTOFF, depth)
+        got = dc.shard_trees_rep_group(suffix, mids, rems, cutoff)
+        want = dc.shard_trees_rep_group(suffix.cpu(), mids, rems, cutoff)
+        where = f"tree R={r} depth={depth} nb={nb}"
+        for what, g, w in zip(("roots", "kept levels"), got, want):
+            compare(f"{where} {what}", g, w.to(dev), where)
+        print(f"{where}: roots and kept levels equal to the plain versions'", flush=True)
 
 
 # Commits held against the host engine: (what, matrix shape, repetitions,
 # suffix blocks per leaf). The trace commit's shard (2^22 leaves of 2
 # base-field values) and the first FRI layer committed on the card (2^21
 # leaves of 2 extension values): the two forms of the leaf phase.
-CARD_COMMITS = [("trace shard", (1 << 22, 2), 2, 1), ("fri layer", (1 << 21, 2, 4), 2, 2)]
+# Two small trees: one level past the cutoff's launch, and depth below it.
+CARD_COMMITS = [
+    ("trace shard", (1 << 22, 2), 2, 1),
+    ("fri layer", (1 << 21, 2, 4), 2, 2),
+    ("2^13 leaves", (1 << 13, 2), 3, 1),
+    ("2^5 leaves", (1 << 5, 2, 4), 3, 2),
+]
 
 
 def check_commits_on_card(dev) -> None:
@@ -380,7 +487,7 @@ def check_commits_on_card(dev) -> None:
         t1 = time.perf_counter()
         on_host = TCS(BcManager()).commit_poly_with_query_times([FMatrix(canon)], reps)
         t2 = time.perf_counter()
-        queries = [0, 1, 255, 256, 123457, n - 1]
+        queries = [q for q in (0, 1, 255, 256, 123457) if q < n] + [n - 1]
         for d, h in zip(on_card, on_host):
             if d.root_words() != h.root_words():
                 raise AssertionError(f"{what}: card and host roots differ")
@@ -432,9 +539,10 @@ def check_lde_routes(dev) -> dict:
     return counts["limb matmul"]
 
 
-def run_prove(name: str, dev, cfg: dict) -> dict:
+def run_prove(name: str, dev, cfg: dict, frozen) -> dict:
     """One prove and verify with spans on and every launch count reset just
-    before it; prints the run and returns the counts read just after."""
+    before it; prints the run, holds the proof to `frozen` (sha256, bytes,
+    witness) and returns the counts read just after."""
     from tapstark_torch.hashes import sha256_device
     from tapstark_torch.poly import cols_ntt, cuda_ntt
     from tapstark_torch.poly import matmul_ntt as mm
@@ -457,6 +565,9 @@ def run_prove(name: str, dev, cfg: dict) -> dict:
         print(f"phase {span}: {r['total_s']:.3f} s over {r['calls']} call(s)")
     print(f"launches {launches}")
     print(f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB", flush=True)
+    got = (hashlib.sha256(data).hexdigest(), len(data), witness)
+    if got != frozen:
+        raise AssertionError(f"{name}: proof {got} differs from the frozen {frozen}")
     return launches
 
 
@@ -488,6 +599,7 @@ def main() -> int:
         f"built={info['built']} in {info['seconds']:.2f} s from "
         f"{[s.split('tapstark_torch/')[-1] for s in info['sources']]} -> {info['path']}"
     )
+    check_ptxas(info["ptxas"])
 
     phase("kernels vs plain")
     stats: dict = {}
@@ -510,14 +622,14 @@ def main() -> int:
         raise AssertionError("golden proof bytes differ from the frozen ones")
 
     phase("north-star prove on cuda (fused LDE route)")
-    launches = path_launches["prove 2^20"] = run_prove("north star", dev, NORTH_STAR)
-    for name in ("lde_inverse", "lde_forward", "sha256_compress", "tapbranch"):
+    launches = path_launches["prove 2^20"] = run_prove("north star", dev, NORTH_STAR, PROOF_2_20)
+    for name in ("lde_inverse", "lde_forward", "tapleaf_subtrees", "tapbranch_levels"):
         if launches[name] == 0:
             raise AssertionError(f"{name} was never launched on the north-star path: {launches}")
 
     phase("2^22 prove on cuda (blocks LDE route)")
-    launches = path_launches["prove 2^22"] = run_prove("blocks route", dev, BLOCKS_PROVE)
-    for name in ("dit_cols", "dif_cols", "sha256_compress", "tapbranch"):
+    launches = path_launches["prove 2^22"] = run_prove("blocks route", dev, BLOCKS_PROVE, PROOF_2_22)
+    for name in ("dit_cols", "dif_cols", "tapleaf_subtrees", "tapbranch_levels"):
         if launches[name] == 0:
             raise AssertionError(f"{name} was never launched on the 2^22 path: {launches}")
     if launches["lde_inverse"] or launches["lde_forward"]:

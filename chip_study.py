@@ -1,17 +1,19 @@
 """Longer measurements of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_study.py
+    python3 chip_study.py [kernels | sass | routes | suffix | busy | peak | fri_tail ...]
 
 `chip_smoke.py` checks the port; this script measures what it leaves
-out, for PERF.md:
+out, for PERF.md (every phase, or the phases named):
 
-- the SHA-256 kernels alone at the north star's largest shapes;
+- the SHA-256 kernels alone at the north star's largest shapes, and the
+  SASS instruction classes of each in the built library (`cuobjdump -sass`);
 - the two coset-LDE routes at 2^22 and 2^23 rows: the fused halves (K1/K2's
   counterparts) against the four-step blocks route (K3/K4's);
 - the leaf-suffix builder (plain torch, no kernel of its own) on one
   north-star trace-commit shard;
-- one north-star prove under `torch.profiler`: the card's busy share and
-  its largest items;
+- one prove at 2^20 and one at 2^22 rows under `torch.profiler`: the
+  card's busy share and its largest items;
+- the span of a 2^22-row prove inside which its peak device memory is set;
 - one FRI layer (fold and commit) on the card and on the host at the sizes
   around the host-tail switch (`fri/prover.py HOST_TAIL_MAX_HALF`).
 
@@ -30,6 +32,7 @@ import time
 import chip_smoke as smoke  # blocks jax and tapstark before torch loads
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+from tapstark_torch.commit.tcs import LEVEL_CUTOFF  # noqa: E402
 
 FRI_TAIL_LOG_HALVES = [8, 10, 12, 13, 14, 16]
 ROUTE_LOG_NS = [22, 23]  # width 2, blowup 4
@@ -56,31 +59,112 @@ def lde_routes(dev) -> None:
         del evals
 
 
-def kernels_full_size(dev) -> None:
-    """The kernels alone, median of 10: `sha256_compress` in the leaf form
-    for the trace commit (28 repetitions x 2^22 leaves, 1 suffix block) and
-    the first FRI layer on the card (28 x 2^21, 2 blocks); `tapbranch` on the
-    trace commit's first tree level (28 x 2^21 nodes, strided children)."""
-    from tapstark_torch.hashes import sha256_device as sd
-
+def _words(dev, seed: int):
     gen = torch.Generator(device=dev)
-    gen.manual_seed(4)
+    gen.manual_seed(seed)
 
     def words(*shape):
         return torch.randint(-(1 << 31), 1 << 31, shape, dtype=torch.int32, device=dev, generator=gen)
 
+    return words
+
+
+def _commit_to_cutoff(sd, mids, suffix, rem):
+    """What a commit launches up to the cutoff, level 8: the leaf launch
+    (levels 1..4) and TapBranch levels 4 -> 8, writing level 8 only."""
+    k = LEVEL_CUTOFF - sd.LEAF_LEVELS
+    return sd.tapbranch_levels(sd.tapleaf_subtrees(mids, suffix, rem, sd.LEAF_LEVELS), k, k)
+
+
+def _to_root(sd, level, depth):
+    """Levels 8 -> root of a depth-`depth` tree, BRANCH_LEVELS a launch,
+    every level written."""
+    for lo in range(LEVEL_CUTOFF, depth, sd.BRANCH_LEVELS):
+        k = min(sd.BRANCH_LEVELS, depth - lo)
+        level = sd.tapbranch_levels(level, k)[:, :, -(level.shape[2] >> k):]
+    return level
+
+
+def kernels_full_size(dev) -> None:
+    """The kernels alone, median of 10: a commit's launches up to level 8
+    (the leaf launch, then levels 4 -> 8) for the 2^22-row trace commit (28
+    repetitions x 2^22 leaves, 1 suffix block) and the first FRI layer on
+    the card (28 x 2^21, 2 blocks), each launch also alone; then levels
+    8 -> root of the 2^22-leaf tree."""
+    from tapstark_torch.hashes import sha256_device as sd
+
+    words = _words(dev, 4)
     r = 28
     for n, nb in ((1 << 22, 1), (1 << 21, 2)):
         mids, suffix, rem = words(8, r), words(16 * nb, n), words(16 * nb, r)
-        ms = smoke.median_ms(lambda: sd.compress_wm(mids, suffix, rem), 10)
-        b = smoke.leaf_bound(r, n, nb)
-        print(f"sha256_compress leaf form R={r} N={n} nb={nb}: {ms:.3f} ms, bound {b[0]:.3f} ms ({b[1]})")
-        del mids, suffix, rem
-    level = words(8, r << 22).view(8, -1, 2)
-    m = r << 21
-    ms = smoke.median_ms(lambda: sd.tapbranch_wm(level[:, :, 0], level[:, :, 1]), 10)
-    b = smoke.tree_level_bound(m)
-    print(f"tapbranch tree level M={m}: {ms:.3f} ms, bound {b[0]:.3f} ms ({b[1]})")
+        level4 = sd.tapleaf_subtrees(mids, suffix, rem, sd.LEAF_LEVELS)
+        k = LEVEL_CUTOFF - sd.LEAF_LEVELS
+        t_leaf = smoke.median_ms(lambda: sd.tapleaf_subtrees(mids, suffix, rem, sd.LEAF_LEVELS), 10)
+        t_leaves = smoke.median_ms(lambda: sd.tapleaf_subtrees(mids, suffix, rem, 0), 10)
+        t_up = smoke.median_ms(lambda: sd.tapbranch_levels(level4, k, k), 10)
+        t_all = smoke.median_ms(lambda: _commit_to_cutoff(sd, mids, suffix, rem), 10)
+        b_leaf = smoke.leaf_bound(r, n, nb, sd.LEAF_LEVELS)
+        b_up = smoke.levels_bound(r, n >> sd.LEAF_LEVELS, k, k)
+        print(f"commit to level 8, R={r} N={n} nb={nb}: {t_all:.3f} ms (bound {b_leaf[0] + b_up[0]:.3f} ms); "
+              f"tapleaf_subtrees {t_leaf:.3f} ms, bound {b_leaf[0]:.3f} ms ({b_leaf[2]}); "
+              f"tapbranch_levels 4->8 {t_up:.3f} ms, bound {b_up[0]:.3f} ms ({b_up[2]}); "
+              f"the leaves alone (no level) {t_leaves:.3f} ms")
+        del mids, suffix, rem, level4
+    depth = 22
+    level8 = words(8, r, 1 << (depth - LEVEL_CUTOFF))
+    ms = smoke.median_ms(lambda: _to_root(sd, level8, depth), 10)
+    bounds = [smoke.levels_bound(r, 1 << (depth - lo), min(sd.BRANCH_LEVELS, depth - lo), 1)[0]
+              for lo in range(LEVEL_CUTOFF, depth, sd.BRANCH_LEVELS)]
+    print(f"tapbranch_levels 8 -> root of R={r} trees of 2^{depth} leaves: {ms:.3f} ms in {len(bounds)} launches, "
+          f"bound {sum(bounds):.4f} ms")
+
+
+SASS_CLASSES = ["SHF", "LOP3", "IADD3", "IMAD", "LEA", "ISETP", "SEL", "MOV", "LDS", "STS", "LDG", "STG", "BAR"]
+
+
+def sass_counts(path: str) -> dict:
+    """{kernel: {instruction class: count}} of a built library, static
+    counts from `cuobjdump -sass`."""
+    cuobjdump = _tool("cuobjdump")
+    out = subprocess.run([cuobjdump, "-sass", path], capture_output=True, text=True, check=True).stdout
+    counts, kernel = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            kernel = next((k for k in ("tapleaf_subtrees", "tapbranch_levels") if k in name), None)
+            if kernel:
+                counts[kernel] = {c: 0 for c in SASS_CLASSES + ["other", "all"]}
+        elif kernel and line.strip().startswith("/*") and "*/" in line:
+            body = line.split("*/", 1)[1].strip()
+            if not body or body.startswith("/*"):
+                continue
+            tokens = body.split()
+            op = tokens[1] if tokens[0].startswith("@") else tokens[0]
+            cls = next((c for c in SASS_CLASSES if op.split(".")[0] == c), "other")
+            counts[kernel][cls] += 1
+            counts[kernel]["all"] += 1
+    return counts
+
+
+def _tool(name: str) -> str:
+    import os
+    import shutil
+
+    from tapstark_torch import _build
+
+    found = shutil.which(name) or os.path.join(os.path.dirname(_build._nvcc()), name)
+    if not os.path.exists(found):
+        raise RuntimeError(f"{name} not found")
+    return found
+
+
+def sha_sass(dev) -> None:
+    """The SASS instruction classes of the two SHA-256 kernels, static
+    counts in the built library."""
+    from tapstark_torch import _build
+
+    for kernel, c in sass_counts(_build.build_info["path"]).items():
+        print(f"{kernel} SASS: {c}")
 
 
 def suffix_builder(dev) -> None:
@@ -101,17 +185,17 @@ def suffix_builder(dev) -> None:
     print(f"suffix words of 2^22 leaves ({plan.suf_words} words each): {ms:.3f} ms")
 
 
-def busy_share(dev) -> None:
-    """One north-star prove under torch.profiler (after an unprofiled one):
-    the card's summed device self time over the prove's wall time, and the
-    largest items."""
+def busy_share(dev, cfg: dict) -> None:
+    """One prove under torch.profiler (after an unprofiled one): the card's
+    summed device self time over the prove's wall time, and the largest
+    items."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    _, _, t_prove, _ = smoke.prove_fibonacci(device=dev, **smoke.NORTH_STAR)
-    print(f"unprofiled prove {t_prove:.3f} s")
+    _, _, t_prove, _ = smoke.prove_fibonacci(device=dev, **cfg)
+    print(f"2^{cfg['log_n']} rows: unprofiled prove {t_prove:.3f} s")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, _, t_prove, _ = smoke.prove_fibonacci(device=dev, **smoke.NORTH_STAR)
+        _, _, t_prove, _ = smoke.prove_fibonacci(device=dev, **cfg)
     # the card's own events (kernels, copies); an aten op's entry repeats
     # the device time of the kernels it launched
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
@@ -119,6 +203,41 @@ def busy_share(dev) -> None:
     print(f"profiled prove {t_prove:.3f} s: card busy {busy:.3f} s ({100 * busy / t_prove:.1f} %)")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / 1e3:9.2f} ms  x{e.count:<6} {e.key[:90]}")
+
+
+def peak_memory(dev) -> None:
+    """Which span sets the peak device memory of a 2^22-row prove: the
+    running peak (`max_memory_allocated`) read as each span ends (the
+    provers' and the commit's `span` replaced for the run); the span that
+    first ends at the final peak holds the allocation that set it."""
+    import contextlib
+    from unittest import mock
+
+    from tapstark_torch.commit import tcs
+    from tapstark_torch.fri import prover as fri_prover
+    from tapstark_torch.stark import prover as stark_prover
+
+    seen = []
+
+    @contextlib.contextmanager
+    def span(name, device=None):
+        try:
+            yield
+        finally:
+            seen.append((name, torch.cuda.max_memory_allocated(dev)))
+
+    torch.empty(1, device=dev)  # the allocator has no stats before its first allocation
+    torch.cuda.reset_peak_memory_stats(dev)
+    with contextlib.ExitStack() as patches:
+        for module in (tcs, fri_prover, stark_prover):
+            patches.enter_context(mock.patch.object(module, "span", span))
+        smoke.prove_fibonacci(device=dev, **smoke.BLOCKS_PROVE)
+    peak = torch.cuda.max_memory_allocated(dev)
+    first = next(i for i, (_, m) in enumerate(seen) if m == peak)
+    steps = [(name, m) for i, (name, m) in enumerate(seen) if i == 0 or m > seen[i - 1][1]]
+    print(f"2^22 prove: peak {peak / 2**30:.2f} GiB, first reached by the end of span {seen[first][0]} "
+          f"(span end {first + 1} of {len(seen)}); the running peak rose at: "
+          + ", ".join(f"{name} {m / 2**30:.2f}" for name, m in steps))
 
 
 def fri_tail(dev) -> None:
@@ -159,6 +278,18 @@ def fri_tail(dev) -> None:
               f"on host {statistics.median(times['host']):.2f} ms")
 
 
+PHASES = {  # name: (title, what runs); `python3 chip_study.py [name ...]` runs those
+    "kernels": ("kernels at the north star's largest shapes", kernels_full_size),
+    "sass": ("SHA-256 kernels' SASS instruction classes", sha_sass),
+    "routes": ("coset LDE routes: fused vs blocks", lde_routes),
+    "suffix": ("leaf-suffix builder", suffix_builder),
+    "busy": ("card busy share (torch.profiler), 2^20 and 2^22 rows",
+             lambda dev: [busy_share(dev, cfg) for cfg in (smoke.NORTH_STAR, smoke.BLOCKS_PROVE)]),
+    "peak": ("the 2^22 prove's peak device memory, by span", peak_memory),
+    "fri_tail": ("fri host tail: one layer on the card vs on the host", fri_tail),
+}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_study: no CUDA device", file=sys.stderr)
@@ -171,16 +302,10 @@ def main() -> int:
     from tapstark_torch import _build
 
     _build.load_library()
-    smoke.phase("kernels at the north star's largest shapes")
-    kernels_full_size(dev)
-    smoke.phase("coset LDE routes: fused vs blocks")
-    lde_routes(dev)
-    smoke.phase("leaf-suffix builder")
-    suffix_builder(dev)
-    smoke.phase("card busy share (torch.profiler)")
-    busy_share(dev)
-    smoke.phase("fri host tail: one layer on the card vs on the host")
-    fri_tail(dev)
+    for name in sys.argv[1:] or PHASES:
+        title, run = PHASES[name]
+        smoke.phase(title)
+        run(dev)
     return 0
 
 

@@ -1,10 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-Every `tapstark_torch/csrc/*.cu` is compiled at first use, with `nvcc`, into
-one shared library with a plain C interface under `tapstark_torch/_build/`
-(named by a hash of the sources and headers, so an edited file rebuilds), and bound
+Every `tapstark_torch/csrc/*.cu` is compiled at first use, with `nvcc`, one
+process per source, all started together, and linked into one shared
+library with a plain C interface under `tapstark_torch/_build/` (named by a
+hash of the sources and headers, so an edited file rebuilds), and bound
 with ctypes. No PyTorch headers are compiled, which keeps the build to
-seconds. A failed build raises.
+seconds. ptxas reports each kernel's registers and spills; the report is
+kept beside the library and read back with it (`build_info["ptxas"]`).
+A failed build raises.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _lib = None
@@ -49,34 +52,32 @@ def headers() -> list[str]:
     return sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
 
 
+_ptr, _i32, _u32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_longlong
+# the C interface: name -> (argument types, result type)
+SIGNATURES = {
+    "tapstark_lde_constants": ([_ptr], None),
+    "tapstark_lde_inverse": ([_ptr, _ptr, _ptr, _i32, _i32, _u32, _ptr], _i32),
+    "tapstark_lde_forward": ([_ptr, _ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _ptr], _i32),
+    "tapstark_sha256_constants": ([_ptr], _i32),
+    "tapstark_sha256_tiling": ([_ptr], None),
+    "tapstark_tapleaf_subtrees": ([_ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _ptr, _i64, _i64, _ptr], _i32),
+    "tapstark_tapbranch_levels": ([_ptr, _i64, _i64, _i32, _i32, _i32, _i32, _ptr, _i64, _i64, _ptr], _i32),
+    "tapstark_ntt_cols_max_log_r": ([], _i32),
+    "tapstark_ntt_cols": ([_ptr, _ptr, _ptr, _i32, _i64, _i32, _ptr], _i32),
+    "tapstark_matmul_constants": ([_ptr], _i32),
+    "tapstark_limb_matmul": ([_ptr, _ptr, _ptr, _ptr, _i32, _i64, _ptr], _i32),
+}
+
+
 def _bind(lib: ctypes.CDLL) -> None:
-    ptr, i32, u32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_longlong
-    lib.tapstark_lde_constants.argtypes = [ptr]
-    lib.tapstark_lde_constants.restype = None
-    lib.tapstark_lde_inverse.argtypes = [ptr, ptr, ptr, i32, i32, u32, ptr]
-    lib.tapstark_lde_inverse.restype = i32
-    lib.tapstark_lde_forward.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
-    lib.tapstark_lde_forward.restype = i32
-    lib.tapstark_sha256_constants.argtypes = [ptr]
-    lib.tapstark_sha256_constants.restype = i32
-    lib.tapstark_sha256_compress.argtypes = [
-        ptr, i64, i64, i64, ptr, i64, ptr, i32, i32, ptr, ptr,
-    ]
-    lib.tapstark_sha256_compress.restype = i32
-    lib.tapstark_tapbranch.argtypes = [ptr, i64, i64, ptr, i64, i64, i64, ptr, ptr]
-    lib.tapstark_tapbranch.restype = i32
-    lib.tapstark_ntt_cols_max_log_r.argtypes = []
-    lib.tapstark_ntt_cols_max_log_r.restype = i32
-    lib.tapstark_ntt_cols.argtypes = [ptr, ptr, ptr, i32, i64, i32, ptr]
-    lib.tapstark_ntt_cols.restype = i32
-    lib.tapstark_matmul_constants.argtypes = [ptr]
-    lib.tapstark_matmul_constants.restype = i32
-    lib.tapstark_limb_matmul.argtypes = [ptr, ptr, ptr, ptr, i32, i64, ptr]
-    lib.tapstark_limb_matmul.restype = i32
+    for name in SIGNATURES:
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = SIGNATURES[name]
 
 
 def _check_constants(lib: ctypes.CDLL) -> None:
     """The kernels' baked constants against the host's."""
+    from .hashes import sha256_device as sd
     from .hashes.sha256_device import _K, _tapbranch_block2_round_consts, tag_midstate_words
     from .poly.cols_ntt import MAX_LOG_R
     from .poly.matmul_ntt import shift_consts_mont
@@ -92,6 +93,10 @@ def _check_constants(lib: ctypes.CDLL) -> None:
     want = [*tag_midstate_words(b"TapBranch"), *_tapbranch_block2_round_consts(), *_K]
     if list(sha) != [int(x) for x in want]:
         raise RuntimeError("SHA-256 kernel constants differ from the host's")
+    tiling = (ctypes.c_int * 4)()
+    lib.tapstark_sha256_tiling(tiling)
+    if (tiling[1], tiling[3]) != (sd.LEAF_LEVELS, sd.MAX_TILE_LEVELS) or sd.BRANCH_LEVELS > tiling[3]:
+        raise RuntimeError(f"SHA-256 kernel tiling {list(tiling)} differs from sha256_device's")
     mm = (ctypes.c_uint32 * 11)()
     err = lib.tapstark_matmul_constants(mm)
     if err != 0:
@@ -100,6 +105,33 @@ def _check_constants(lib: ctypes.CDLL) -> None:
         raise RuntimeError(f"limb-matmul kernel constants {list(mm)} differ from the host's")
     if lib.tapstark_ntt_cols_max_log_r() != MAX_LOG_R:
         raise RuntimeError("column-NTT kernel's largest log R differs from cols_ntt.MAX_LOG_R")
+
+
+def _compile_library(srcs: list[str], so_path: str) -> None:
+    """nvcc each source (one process each, all at once), link them into
+    so_path; what ptxas reported goes to `so_path`.ptxas.txt."""
+    objs = [f"{so_path}.{os.getpid()}.{i}.o" for i in range(len(srcs))]
+    procs = [
+        subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", o, src],
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for src, o in zip(srcs, objs)
+    ]
+    outs = [p.communicate() for p in procs]
+    ptxas = ""
+    for src, p, (out, err) in zip(srcs, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src} ({p.returncode}):\n{err}")
+        ptxas += out + err
+    tmp = f"{so_path}.{os.getpid()}.tmp"
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", tmp, *objs], capture_output=True, text=True)
+    for o in objs:
+        os.remove(o)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+    with open(f"{tmp}.ptxas.txt", "w") as f:
+        f.write(ptxas)
+    os.replace(f"{tmp}.ptxas.txt", f"{so_path}.ptxas.txt")  # before the library: it implies the report
+    os.replace(tmp, so_path)
 
 
 def load_library() -> ctypes.CDLL:
@@ -118,18 +150,14 @@ def load_library() -> ctypes.CDLL:
     t0 = time.perf_counter()
     built = not os.path.exists(so_path)
     if built:
-        tmp = f"{so_path}.{os.getpid()}.tmp"
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs], capture_output=True, text=True
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, so_path)
+        _compile_library(srcs, so_path)
+    with open(f"{so_path}.ptxas.txt") as f:
+        ptxas = f.read()
     lib = ctypes.CDLL(so_path)
     _bind(lib)
     _check_constants(lib)
     build_info.update(
-        path=so_path, sources=srcs, built=built, seconds=time.perf_counter() - t0
+        path=so_path, sources=srcs, built=built, seconds=time.perf_counter() - t0, ptxas=ptxas
     )
     _lib = lib
     return lib

@@ -10,12 +10,15 @@
   each slot's bytes are scattered at cumsum offsets — byte-exact with
   script.builder.push_int;
 - tails are repetition-independent: the suffix words are built once and
-  every repetition's tapleaf compressions run from its own head midstate
-  (`compress_wm`, K5's counterpart);
-- TapBranch levels hash in natural node order, one `tapbranch_wm` launch
-  per level (K6's counterpart); only the root and the levels >= the cutoff
-  come to the host (the sparse layout of native.tcs_commit_sparse_native,
-  so openings reuse the host leaf-block rebuild).
+  every repetition's tapleaf compressions run from its own head midstate;
+  the same launch hashes the first TapBranch levels above the leaves in
+  shared memory (`tapleaf_subtrees`, K5's counterpart), so no level below
+  the fourth reaches device memory;
+- the TapBranch levels above it hash in natural node order, several per
+  launch (`tapbranch_levels`, K6's counterpart); only the root and the
+  levels >= the cutoff are kept and come to the host (the sparse layout of
+  native.tcs_commit_sparse_native, so openings reuse the host leaf-block
+  rebuild).
 
 On a CUDA tensor the hashing runs on the card's kernels, on a CPU tensor
 through their plain versions. The suffix builder is plain torch on both.
@@ -31,7 +34,13 @@ import torch
 
 from ..field.device import from_mont
 from ..hashes.sha256 import compact_size
-from ..hashes.sha256_device import compress_wm, tag_midstate_words, tapbranch_wm
+from ..hashes.sha256_device import (
+    BRANCH_LEVELS,
+    LEAF_LEVELS,
+    tag_midstate_words,
+    tapbranch_levels,
+    tapleaf_subtrees,
+)
 from ..script import opcodes as op
 
 _OP_FROMALT = op.OP_FROMALTSTACK
@@ -122,13 +131,28 @@ def padding_matrix_dev(matrices) -> torch.Tensor:
     return torch.cat(cols, dim=1)
 
 
+# leaves per pass of the suffix builder: its (S, 8, N) temporaries take ~100
+# bytes per slot and leaf (~12 GB in one pass over a 2^24-leaf shard)
+_SUFFIX_CHUNK_LEAVES = 1 << 20
+
+
 def build_tail_suffix_words(
     values_shard: torch.Tensor, plan: ShardSuffixPlan, base_index: int = 0
 ) -> torch.Tensor:
     """values_shard (N, K, L) canonical int32 -> WORD-MAJOR (suf_words, N)
     int32: the repetition-independent part of each leaf's suffix blocks
     (rem region zeroed, SHA padding included), leaf n committing index
-    base_index + n.
+    base_index + n. Built _SUFFIX_CHUNK_LEAVES leaves at a time."""
+    n = values_shard.shape[0]
+    out = torch.empty((plan.suf_words, n), dtype=torch.int32, device=values_shard.device)
+    for c0 in range(0, n, _SUFFIX_CHUNK_LEAVES):
+        c1 = min(c0 + _SUFFIX_CHUNK_LEAVES, n)
+        out[:, c0:c1] = _suffix_words_pass(values_shard[c0:c1], plan, base_index + c0)
+    return out
+
+
+def _suffix_words_pass(values_shard: torch.Tensor, plan: ShardSuffixPlan, base_index: int) -> torch.Tensor:
+    """`build_tail_suffix_words` over one chunk of leaves.
 
     Everything is slot-major (S, N), so the cumsum runs across slots. Each
     slot (values reversed, limbs in order, then the index) is at most 8
@@ -182,24 +206,37 @@ def shard_trees_rep_group(
     the tree is hashed, midstates (R, 8) and rem_words (R, W) uint32 on the
     host. Returns (roots (R, 8), uppers (R, T, 8)) int32 digest words on
     suffix_words' device: uppers concatenates levels l in [cutoff, depth)
-    (level l has N >> l nodes) in natural node order along T."""
+    (level l has N >> l nodes) in natural node order along T.
+
+    Levels cutoff..depth (the root last) are written into one (8, R, T + 1)
+    buffer: the leaf launch hashes up to LEAF_LEVELS levels, a TapBranch
+    launch takes the rest up to the cutoff (writing the cutoff level only),
+    then one launch per BRANCH_LEVELS levels writes every level up to the
+    root."""
     dev = suffix_words.device
     n = suffix_words.shape[1]
     if n & (n - 1):
         raise ValueError(f"shard_trees_rep_group: {n} leaves is not a power of two")
     mids = torch.from_numpy(np.ascontiguousarray(midstates.T).view(np.int32)).to(dev)
     rem = torch.from_numpy(np.ascontiguousarray(rem_words.T).view(np.int32)).to(dev)
-    level = compress_wm(mids, suffix_words, rem)  # (8, R, N) leaf digests
-    r = level.shape[1]
+    r = mids.shape[1]
     depth = max((n - 1).bit_length(), 0)
-    upper = []
-    for l in range(depth):
-        children = level.view(8, -1, 2)  # siblings 2i, 2i+1 of every repetition
-        level = tapbranch_wm(children[:, :, 0], children[:, :, 1]).view(8, r, -1)
-        if cutoff <= l + 1 < depth:
-            upper.append(level)
-    flat = torch.cat(upper, dim=2) if upper else level.new_empty((8, r, 0))
-    return level[:, :, 0].T, flat.permute(1, 2, 0)
+    offs = np.cumsum([0] + [n >> l for l in range(cutoff, depth + 1)]).tolist()  # level cutoff + i at offs[i]
+    buf = torch.empty((8, r, offs[-1]), dtype=torch.int32, device=dev)
+
+    def cols(lo: int, hi: int) -> torch.Tensor:  # levels lo..hi of the buffer
+        return buf[:, :, offs[lo - cutoff] : offs[hi - cutoff + 1]]
+
+    first = min(LEAF_LEVELS, cutoff)
+    if first == cutoff:
+        tapleaf_subtrees(mids, suffix_words, rem, first, out=cols(cutoff, cutoff))
+    else:
+        below = tapleaf_subtrees(mids, suffix_words, rem, first)
+        tapbranch_levels(below, cutoff - first, cutoff - first, out=cols(cutoff, cutoff))
+    for l in range(cutoff, depth, BRANCH_LEVELS):
+        top = min(l + BRANCH_LEVELS, depth)
+        tapbranch_levels(cols(l, l), top - l, out=cols(l + 1, top))
+    return buf[:, :, -1].T, buf[:, :, :-1].permute(1, 2, 0)
 
 
 def roots_to_bytes(roots_np: np.ndarray) -> list[bytes]:

@@ -248,12 +248,15 @@ def _leaf_script_from_row(
 # (~n/2^LEVEL_CUTOFF entries instead of ~2n).
 LEVEL_CUTOFF = 8
 
-# rep-group size of a device commit, in (repetition, leaf) lanes: a lane
-# holds its leaf digest (32 B) while the first TapBranch level (16 B per
-# lane) is written, so 2^28 lanes peak at ~12 GiB, a sixth of an 80 GB
-# H100. The north star's 28 repetitions of 2^22 leaves (1.2e8 lanes) are
-# one group; the 2^24 of the JAX package was sized for a 16 GB TPU.
-_DEVICE_GROUP_LANES = 1 << 28
+# rep-group size of a device commit, in (repetition, leaf) lanes. Leaf
+# digests and the levels below the fourth stay in shared memory
+# (device_commit.shard_trees_rep_group), so a lane holds 2 B of level 4
+# (32 B per 16 leaves) and ~0.25 B of the kept levels (cutoff 8 up to the
+# root): 2^30 lanes peak at ~2.4 GB, 3 % of an 80 GB H100, beside the
+# group's shared suffix words. The 2^22 and 2^23 proves' 28 repetitions of
+# 2^24 and 2^25 leaves are one group; the 2^24 of the JAX package was sized
+# for a 16 GB TPU.
+_DEVICE_GROUP_LANES = 1 << 30
 
 
 _TREE_POOL = None
@@ -490,10 +493,11 @@ class TCS:
     def _commit_device(self, matrices, assignments, bounds):
         """Tree builds where the matrices' tensors live: the padding matrix
         built there and copied to the host once (the openings' leaf values);
-        per shard, the repetition-independent leaf suffix words once; then per rep-group
-        every repetition's tapleaf compressions (one sha256_compress launch)
-        and TapBranch levels (one tapbranch launch per level) from its own
-        head midstate. The roots and the levels at or above the cutoff of
+        per shard, the repetition-independent leaf suffix words once; then
+        per rep-group every repetition's tapleaf compressions from its own
+        head midstate with the first TapBranch levels (one tapleaf_subtrees
+        launch) and the levels above them (tapbranch_levels, several levels
+        a launch). The roots and the levels at or above the cutoff of
         the whole commit come to the host in one copy. They are
         byte-identical to the host engine's, so openings rebuild their leaf
         block on the host as before (SparseNativeTaptree)."""

@@ -2,18 +2,21 @@
 `tapstark.hashes.sha256_device`): wrappers of the two kernels in
 `tapstark_torch/csrc/sha256.cu` and their plain versions.
 
-- `compress_wm` replaces `_sha_pallas_kernel` (K5): SHA-256 compressions in
-  word-major layout, one lane per message. Plain form: state (8, M) and
-  nb blocks (16·nb, M) give (8, M). Leaf form (with `rem`): per-repetition
+- `tapleaf_subtrees` replaces `_sha_pallas_kernel` (K5): per-repetition
   head midstates (8, R), a suffix shared by every repetition (16·nb, N)
-  and per-repetition remainder words (16·nb, R) give (8, R, N); lane
-  (r, n) compresses the blocks suffix[:, n] | rem[:, r]. The (16·nb, R, N)
-  block tensor is never built.
-- `tapbranch_wm` replaces `_tapbranch_pallas_kernel` (K6): one whole BIP-341
-  TapBranch node per lane, h1 and h2 (8, M) → (8, M): sort the two digests
-  (big-endian word compare), compress from the TapBranch tag midstate,
-  compress the constant padding block, feed forward. h1 and h2 may be
-  strided views (a tree level passes its even and odd children).
+  and per-repetition remainder words (16·nb, R); lane (r, n) compresses the
+  blocks suffix[:, n] | rem[:, r] (the (16·nb, R, N) block tensor is never
+  built), and the first `levels` TapBranch levels above the leaves hash in
+  the same launch. Out: level `levels`, (8, R, N >> levels).
+- `tapbranch_levels` replaces `_tapbranch_pallas_kernel` (K6): BIP-341
+  TapBranch nodes (sort the two digests by big-endian word compare,
+  compress from the TapBranch tag midstate, compress the constant padding
+  block, feed forward) over up to MAX_TILE_LEVELS levels of a tree level
+  (8, R, n) in one launch; every level from `write_first` up is written,
+  one after another along each repetition's row.
+- `compress_wm` and `tapbranch_wm` are the one-step forms (one compression
+  chain per lane; one TapBranch node per lane), run on the same two kernels
+  with zero levels above the leaves and one level.
 
 Words are stored as int32 tensors holding the uint32 bits (torch's uint32
 lacks `+` and shifts); the plain versions do their math in int64. Each
@@ -141,7 +144,17 @@ def _tapbranch_block2_round_consts() -> tuple:
 
 # Launches of each kernel since the last reset (one per wrapper call that
 # reached the card).
-launches = {"sha256_compress": 0, "tapbranch": 0}
+launches = {"tapleaf_subtrees": 0, "tapbranch_levels": 0}
+
+# The kernels' tiling (csrc/sha256.cu, checked by the loader): a launch of
+# either hashes at most MAX_TILE_LEVELS levels (a 2048-node tile down to
+# one node); the commit hashes LEAF_LEVELS levels in the leaf launch and
+# BRANCH_LEVELS per TapBranch launch above the cutoff (the tile's 512
+# threads all busy on the first two, half and a quarter of them on the
+# last two).
+LEAF_LEVELS = 4
+BRANCH_LEVELS = 4
+MAX_TILE_LEVELS = 11
 
 
 def reset_launch_counts() -> None:
@@ -233,6 +246,33 @@ def tapbranch_wm_plain(h1: torch.Tensor, h2: torch.Tensor) -> torch.Tensor:
     return _s(torch.stack([(a + b) & _M32 for a, b in zip(s, st1)]))
 
 
+def _level_up_plain(level: torch.Tensor) -> torch.Tensor:
+    """(8, R, n) tree level -> (8, R, n / 2): TapBranch of siblings 2i, 2i+1."""
+    r, n = level.shape[1], level.shape[2]
+    children = level.reshape(8, r * n // 2, 2)
+    return tapbranch_wm_plain(children[:, :, 0], children[:, :, 1]).view(8, r, n // 2)
+
+
+def tapleaf_subtrees_plain(mids: torch.Tensor, suffix: torch.Tensor, rem: torch.Tensor, levels: int) -> torch.Tensor:
+    """`tapleaf_subtrees` in plain torch: the leaf digests (8, R, N), then
+    `levels` TapBranch levels one after another."""
+    level = compress_wm_plain(mids, suffix, rem)
+    for _ in range(levels):
+        level = _level_up_plain(level)
+    return level
+
+
+def tapbranch_levels_plain(level: torch.Tensor, levels: int, write_first: int = 1) -> torch.Tensor:
+    """`tapbranch_levels` in plain torch: levels 1..`levels` above `level`
+    (8, R, n), those from `write_first` up concatenated along the last axis."""
+    kept = []
+    for l in range(1, levels + 1):
+        level = _level_up_plain(level)
+        if l >= write_first:
+            kept.append(level)
+    return torch.cat(kept, dim=2)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -247,79 +287,144 @@ def _check_words(x: torch.Tensor, name: str, dim: int, device) -> None:
         raise ValueError(f"{name}: on {x.device}, expected {device}")
 
 
+def _check_out(out: torch.Tensor, name: str, shape: tuple, device) -> None:
+    _check_words(out, name, 3, device)
+    if tuple(out.shape) != shape or out.stride(2) != 1:
+        raise ValueError(f"{name}: out {tuple(out.shape)} strides {out.stride()}, expected {shape} with unit last stride")
+
+
+def _log2(n: int, name: str) -> int:
+    if n < 1 or n & (n - 1):
+        raise ValueError(f"{name}: {n} nodes per repetition is not a power of two")
+    return n.bit_length() - 1
+
+
 def _stream_ptr(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def compress_wm(state: torch.Tensor, block: torch.Tensor, rem: torch.Tensor | None = None) -> torch.Tensor:
-    """SHA-256 compressions, word-major, int32 words.
-
-    Plain form: state (8, M), block (16·nb, M) → (8, M), nb chained
-    compressions per lane. Leaf form (rem given): state (8, R) per
-    repetition, block (16·nb, N) shared, rem (16·nb, R) per repetition →
-    (8, R, N)."""
-    if block.device.type == "cpu":
-        return compress_wm_plain(state, block, rem)
-    if block.device.type != "cuda":
-        raise ValueError(f"compress_wm: no path for device {block.device}")
-    dev = block.device
-    _check_words(block, "compress_wm block", 2, dev)
-    _check_words(state, "compress_wm state", 2, dev)
-    rows, n_lanes = block.shape
-    nb = rows // 16
-    if nb < 1 or rows != 16 * nb or not block.is_contiguous() or state.shape[0] != 8:
-        raise ValueError(f"compress_wm: block {tuple(block.shape)}, state {tuple(state.shape)} unsupported")
-    if rem is None:
-        reps = 1
-        if state.shape[1] != n_lanes:
-            raise ValueError(f"compress_wm: state {tuple(state.shape)} for {n_lanes} lanes")
-        st_strides = (state.stride(0), 0, state.stride(1))
-        rem_ptr = None
-    else:
-        _check_words(rem, "compress_wm rem", 2, dev)
-        reps = state.shape[1]
-        if rem.shape != (rows, reps) or not rem.is_contiguous() or not 1 <= reps <= 65535:
-            raise ValueError(f"compress_wm: rem {tuple(rem.shape)} for state {tuple(state.shape)}")
-        st_strides = (state.stride(0), state.stride(1), 0)
-        rem_ptr = rem.data_ptr()
-    out = torch.empty((8, reps, n_lanes), dtype=torch.int32, device=dev)
+def _lib():
     from .._build import load_library
 
-    lib = load_library()
+    return load_library()
+
+
+def _device_of(x: torch.Tensor, name: str):
+    """None for a CPU tensor (the plain version runs), the device for a
+    CUDA one; raises for any other."""
+    if x.device.type == "cpu":
+        return None
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no path for device {x.device}")
+    return x.device
+
+
+def tapleaf_subtrees(
+    mids: torch.Tensor, suffix: torch.Tensor, rem: torch.Tensor, levels: int, out: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Tapleaf digests and the `levels` TapBranch levels above them.
+
+    mids (8, R) head midstates, suffix (16·nb, N) shared suffix words (N a
+    power of two), rem (16·nb, R) remainder words, all int32 and
+    contiguous; 0 <= levels <= min(log2 N, MAX_TILE_LEVELS). Returns level
+    `levels`, (8, R, N >> levels), written into `out` when given (any
+    strides but a unit last one, e.g. a slice of a larger buffer)."""
+    dev = _device_of(suffix, "tapleaf_subtrees")
+    if dev is None:
+        got = tapleaf_subtrees_plain(mids, suffix, rem, levels)
+        return got if out is None else out.copy_(got)
+    for x, name in ((mids, "mids"), (suffix, "suffix"), (rem, "rem")):
+        _check_words(x, f"tapleaf_subtrees {name}", 2, dev)
+        if not x.is_contiguous():
+            raise ValueError(f"tapleaf_subtrees: {name} is not contiguous")
+    rows, n = suffix.shape
+    reps = mids.shape[1]
+    nb = rows // 16
+    log_n = _log2(n, "tapleaf_subtrees")
+    if nb < 1 or rows != 16 * nb or mids.shape[0] != 8 or rem.shape != (rows, reps):
+        raise ValueError(f"tapleaf_subtrees: mids {tuple(mids.shape)}, suffix {tuple(suffix.shape)}, rem {tuple(rem.shape)}")
+    if not 0 <= levels <= min(log_n, MAX_TILE_LEVELS):
+        raise ValueError(f"tapleaf_subtrees: {levels} levels above {n} leaves")
+    if reps * n >= 1 << 31:
+        raise ValueError(f"tapleaf_subtrees: {reps} x {n} lanes, at most 2^31 - 1 a launch")
+    shape = (8, reps, n >> levels)
+    if out is None:
+        out = torch.empty(shape, dtype=torch.int32, device=dev)
+    _check_out(out, "tapleaf_subtrees", shape, dev)
     with torch.cuda.device(dev):
-        err = lib.tapstark_sha256_compress(
-            state.data_ptr(), *st_strides, block.data_ptr(), n_lanes, rem_ptr, reps, nb,
-            out.data_ptr(), _stream_ptr(dev),
+        err = _lib().tapstark_tapleaf_subtrees(
+            mids.data_ptr(), suffix.data_ptr(), rem.data_ptr(), reps, log_n, nb, levels,
+            out.data_ptr(), out.stride(0), out.stride(1), _stream_ptr(dev),
         )
     if err != 0:
-        raise RuntimeError(f"compress_wm: CUDA error {err}")
-    launches["sha256_compress"] += 1
-    return out if rem is not None else out.view(8, n_lanes)
+        raise RuntimeError(f"tapleaf_subtrees: CUDA error {err}")
+    launches["tapleaf_subtrees"] += 1
+    return out
+
+
+def tapbranch_levels(
+    level: torch.Tensor, levels: int, write_first: int = 1, out: torch.Tensor | None = None
+) -> torch.Tensor:
+    """TapBranch levels 1..`levels` above a tree level (8, R, n) int32 (n a
+    power of two, any strides but a unit last one), each node over its
+    children 2i and 2i+1 of the same repetition; 1 <= write_first <= levels
+    <= min(log2 n, MAX_TILE_LEVELS). Returns levels write_first..levels
+    concatenated along the last axis, (8, R, sum of n >> l), written into
+    `out` when given (any strides but a unit last one)."""
+    dev = _device_of(level, "tapbranch_levels")
+    if dev is None:
+        got = tapbranch_levels_plain(level, levels, write_first)
+        return got if out is None else out.copy_(got)
+    _check_words(level, "tapbranch_levels level", 3, dev)
+    _, reps, n = level.shape
+    log_n = _log2(n, "tapbranch_levels")
+    if level.shape[0] != 8 or level.stride(2) != 1:
+        raise ValueError(f"tapbranch_levels: level {tuple(level.shape)} strides {level.stride()}")
+    if not 1 <= write_first <= levels <= min(log_n, MAX_TILE_LEVELS):
+        raise ValueError(f"tapbranch_levels: levels {write_first}..{levels} above {n} nodes")
+    if reps * n >= 1 << 31:
+        raise ValueError(f"tapbranch_levels: {reps} x {n} nodes, at most 2^31 - 1 a launch")
+    shape = (8, reps, sum(n >> l for l in range(write_first, levels + 1)))
+    if out is None:
+        out = torch.empty(shape, dtype=torch.int32, device=dev)
+    _check_out(out, "tapbranch_levels", shape, dev)
+    with torch.cuda.device(dev):
+        err = _lib().tapstark_tapbranch_levels(
+            level.data_ptr(), level.stride(0), level.stride(1), reps, log_n, levels, write_first,
+            out.data_ptr(), out.stride(0), out.stride(1), _stream_ptr(dev),
+        )
+    if err != 0:
+        raise RuntimeError(f"tapbranch_levels: CUDA error {err}")
+    launches["tapbranch_levels"] += 1
+    return out
+
+
+def compress_wm(state: torch.Tensor, block: torch.Tensor, rem: torch.Tensor | None = None) -> torch.Tensor:
+    """SHA-256 compressions, word-major, int32 words, on `tapleaf_subtrees`
+    with no level above the leaves.
+
+    Plain form: state (8, M), block (16·nb, M) → (8, M), nb chained
+    compressions per lane (each lane a repetition of one leaf). Leaf form
+    (rem given): state (8, R) per repetition, block (16·nb, N) shared (on
+    the card, N a power of two), rem (16·nb, R) per repetition →
+    (8, R, N)."""
+    if _device_of(block, "compress_wm") is None:
+        return compress_wm_plain(state, block, rem)
+    if rem is not None:
+        return tapleaf_subtrees(state, block, rem, 0)
+    if block.dim() != 2 or state.dim() != 2 or state.shape[1] != block.shape[1]:
+        raise ValueError(f"compress_wm: state {tuple(state.shape)}, block {tuple(block.shape)}")
+    zero = torch.zeros((block.shape[0], 1), dtype=block.dtype, device=block.device)
+    return tapleaf_subtrees(state.contiguous(), zero, block.contiguous(), 0).view(8, -1)
 
 
 def tapbranch_wm(h1: torch.Tensor, h2: torch.Tensor) -> torch.Tensor:
-    """TapBranch of each lane's two child digests: h1, h2 (8, M) int32
-    words (any strides) → (8, M) contiguous."""
-    if h1.device.type == "cpu":
+    """TapBranch of each lane's two child digests, on `tapbranch_levels`
+    with one level: h1, h2 (8, M) int32 words (any strides) → (8, M)
+    contiguous."""
+    if _device_of(h1, "tapbranch_wm") is None:
         return tapbranch_wm_plain(h1, h2)
-    if h1.device.type != "cuda":
-        raise ValueError(f"tapbranch_wm: no path for device {h1.device}")
-    dev = h1.device
-    _check_words(h1, "tapbranch_wm h1", 2, dev)
-    _check_words(h2, "tapbranch_wm h2", 2, dev)
-    if h1.shape != h2.shape or h1.shape[0] != 8:
+    if h1.dim() != 2 or h1.shape != h2.shape or h1.shape[0] != 8:
         raise ValueError(f"tapbranch_wm: shapes {tuple(h1.shape)}, {tuple(h2.shape)}")
-    m = h1.shape[1]
-    out = torch.empty((8, m), dtype=torch.int32, device=dev)
-    from .._build import load_library
-
-    lib = load_library()
-    with torch.cuda.device(dev):
-        err = lib.tapstark_tapbranch(
-            h1.data_ptr(), h1.stride(0), h1.stride(1), h2.data_ptr(), h2.stride(0), h2.stride(1),
-            m, out.data_ptr(), _stream_ptr(dev),
-        )
-    if err != 0:
-        raise RuntimeError(f"tapbranch_wm: CUDA error {err}")
-    launches["tapbranch"] += 1
-    return out
+    # each lane a repetition of one two-node level
+    return tapbranch_levels(torch.stack([h1, h2], dim=2), 1).view(8, -1)

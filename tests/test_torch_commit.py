@@ -117,7 +117,8 @@ def _suffix_case(n, k, l):
 
 
 @pytest.mark.parametrize("n,k,l", [(64, 3, 4), (300, 2, 1), (256, 8, 1), (512, 2, 4)])
-def test_suffix_words_match_jax(n, k, l):
+def test_suffix_words_match_jax(n, k, l, monkeypatch):
+    monkeypatch.setattr(dc, "_SUFFIX_CHUNK_LEAVES", 128)  # several passes, a ragged last one
     vals, head_len, fixed_len = _suffix_case(n, k, l)
     plan = dc.ShardSuffixPlan(head_len, fixed_len)
     jplan = jdc.ShardSuffixPlan(head_len, fixed_len)
@@ -173,6 +174,88 @@ def test_shard_trees_match_jax_and_host_taptree():
         for i in (0, 5, 37, n - 1):
             above = [bytes(levels[lvl - cutoff][(i >> lvl) ^ 1]) for lvl in range(cutoff, 6)]
             assert above == t.get_tapleaf(i).merkle_branch[cutoff:] == juppers.view(r).path_bytes(i)
+
+
+def _chain_levels(mids, suffix, rem, depth):
+    """Today's one-step chain: leaf digests by `compress_wm_plain`, then one
+    `tapbranch_wm_plain` per level; every level (8, R, n >> l), leaves first."""
+    level = sd.compress_wm_plain(mids, suffix, rem)
+    out = [level]
+    for _ in range(depth):
+        pairs = level.reshape(8, -1, 2)
+        level = sd.tapbranch_wm_plain(pairs[:, :, 0], pairs[:, :, 1]).view(8, level.shape[1], -1)
+        out.append(level)
+    return out
+
+
+# (leaves, suffix blocks per leaf, repetitions): depth below, at and past
+# the cutoff; 2^13 leaves have 5 levels above the cutoff, one launch of
+# BRANCH_LEVELS and one of a single level
+SUBTREE_SHAPES = [(n, nb, r) for n in (1, 2, 1 << 5, 1 << 8, 1 << 13) for nb in (1, 2) for r in (1, 3)]
+
+
+def test_subtree_kernels_plain_match_chain_jax_and_host_taptree():
+    """The new kernels' plain versions (`tapleaf_subtrees_plain`,
+    `tapbranch_levels_plain`) against today's chain at every level, and the
+    roots and kept levels of `shard_trees_rep_group` (the commit's launch
+    plan) against the chain and the host taptree over SUBTREE_SHAPES, and
+    against the JAX package's device-commit trees at its 3-repetition
+    shapes. Heads of 731 and 740 bytes put the
+    (2, 1)-value tails in one and in two suffix blocks."""
+    rng = np.random.default_rng(60)
+    k, l = 2, 1
+    for n, nb, r in SUBTREE_SHAPES:
+        head_len = 731 if nb == 1 else 740
+        heads = [bytes(rng.integers(0, 256, head_len, dtype=np.uint8)) for _ in range(r)]
+        vals = rng.integers(0, P, (n, k, l), dtype=np.uint64).astype(np.uint32)
+        for i, v in enumerate(EDGE[:n]):
+            vals[i, 0, 0] = v
+        fixed_len = head_len + _max_tail_len(k, l)
+        plan = dc.ShardSuffixPlan(head_len, fixed_len)
+        assert plan.suf_words == 16 * nb
+        mids, rems = plan.head_midstates_batch(heads)
+        suffix = dc.build_tail_suffix_words(_t(vals), plan)
+        tm, tr = _t(np.ascontiguousarray(mids.T)), _t(np.ascontiguousarray(rems.T))
+        depth = n.bit_length() - 1
+        cutoff = min(tcs.LEVEL_CUTOFF, depth)
+        chain = _chain_levels(tm, suffix, tr, depth)
+        first = min(sd.LEAF_LEVELS, cutoff)
+        for lv in {first, min(depth, sd.MAX_TILE_LEVELS)}:
+            assert torch.equal(sd.tapleaf_subtrees_plain(tm, suffix, tr, lv), chain[lv]), (n, nb, r, lv)
+        if cutoff > first:  # up to the cutoff, its level only
+            got = sd.tapbranch_levels_plain(chain[first], cutoff - first, cutoff - first)
+            assert torch.equal(got, chain[cutoff]), (n, nb, r)
+        if depth > cutoff:  # every level above it, as many as a launch takes
+            top = min(depth, cutoff + sd.MAX_TILE_LEVELS)
+            got = sd.tapbranch_levels_plain(chain[cutoff], top - cutoff)
+            assert torch.equal(got, torch.cat(chain[cutoff + 1 : top + 1], dim=2)), (n, nb, r)
+
+        roots, uppers = dc.shard_trees_rep_group(suffix, mids, rems, cutoff)
+        assert torch.equal(roots, chain[depth][:, :, 0].T)
+        kept = [chain[lv] for lv in range(cutoff, depth)]
+        want = torch.cat(kept, dim=2) if kept else chain[depth][:, :, :0]
+        assert torch.equal(uppers, want.permute(1, 2, 0))
+        [per_rep] = dc.fetch_trees([(roots, uppers)], n, cutoff)
+
+        if r > 1:  # the JAX trees (one compile per shape); they keep bit-reversed order
+            jplan = jdc.ShardSuffixPlan(head_len, fixed_len)
+            brv = bitrev_indices(depth)
+            jsuffix = jnp.asarray(_jax_suffix(vals[brv], jplan, brv))
+            jroots, juppers = jdc.shard_trees_rep_group(jsuffix, mids, rems, cutoff)
+            assert [root for root, _ in per_rep] == jroots, (n, nb, r)
+            jflat = np.asarray(juppers.flat)
+            for lv, off in zip(range(cutoff, depth), juppers.offsets):
+                natural = jflat[:, off + bitrev_indices(depth - lv)]  # (R, n >> lv, 8)
+                np.testing.assert_array_equal(_np(uppers[:, off : off + (n >> lv)]), natural)
+
+        for j, head in enumerate(heads):
+            t = build_taptree([_leaf_script_from_row(head, fixed_len, i, vals[i]) for i in range(n)])
+            root, levels = per_rep[j]
+            assert root == t.root_hash
+            for i in {0, n // 3, n - 1}:
+                assert [bytes(levels[lv - cutoff][(i >> lv) ^ 1]) for lv in range(cutoff, depth)] == (
+                    t.get_tapleaf(i).merkle_branch[cutoff:]
+                )
 
 
 def _leaf_bytes(proof):
@@ -238,6 +321,10 @@ def test_sha_wrappers_raise_off_cpu_and_cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("lanes", [1 << 12, 4099])
 def test_cuda_sha_kernels_match_plain(lanes):
+    """The one-step forms, and `tapleaf_subtrees` / `tapbranch_levels` over
+    trees of 2^5 and 2^13 leaves (3 repetitions, 1 and 2 suffix blocks) as
+    the commit launches them, against their plain versions; launches
+    counted."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     rng = np.random.default_rng(50)
@@ -248,9 +335,21 @@ def test_cuda_sha_kernels_match_plain(lanes):
     assert torch.equal(sd.compress_wm(state, block), sd.compress_wm_plain(state, block))
     assert torch.equal(sd.tapbranch_wm(h1, h2), sd.tapbranch_wm_plain(h1, h2))
     mids, rem = _t(_words(rng, 8, 5)).cuda(), _t(_words(rng, 32, 5)).cuda()
-    assert torch.equal(sd.compress_wm(mids, block, rem), sd.compress_wm_plain(mids, block, rem))
-    assert sd.launches["sha256_compress"] == before["sha256_compress"] + 2
-    assert sd.launches["tapbranch"] == before["tapbranch"] + 1
+    suffix = block[:, :4096].contiguous()
+    assert torch.equal(sd.compress_wm(mids, suffix, rem), sd.compress_wm_plain(mids, suffix, rem))
+    assert sd.launches["tapleaf_subtrees"] == before["tapleaf_subtrees"] + 2
+    assert sd.launches["tapbranch_levels"] == before["tapbranch_levels"] + 1
+    for n, nb in ((1 << 5, 1), (1 << 13, 2)):
+        mids, suffix, rem = (_t(_words(rng, *shape)).cuda() for shape in ((8, 3), (16 * nb, n), (16 * nb, 3)))
+        before = dict(sd.launches)
+        level4 = sd.tapleaf_subtrees(mids, suffix, rem, 4)
+        assert torch.equal(level4, sd.tapleaf_subtrees_plain(mids, suffix, rem, 4))
+        depth = n.bit_length() - 1
+        top = min(depth - 4, sd.MAX_TILE_LEVELS)
+        assert torch.equal(sd.tapbranch_levels(level4, top), sd.tapbranch_levels_plain(level4, top))
+        assert torch.equal(sd.tapbranch_levels(level4, top, top), sd.tapbranch_levels_plain(level4, top, top))
+        assert sd.launches["tapleaf_subtrees"] == before["tapleaf_subtrees"] + 1
+        assert sd.launches["tapbranch_levels"] == before["tapbranch_levels"] + 2
 
 
 @pytest.mark.cuda
