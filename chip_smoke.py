@@ -3,8 +3,10 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `tapstark_torch/csrc/`, holds each one
-against its plain PyTorch version on the card (exact equality: the words
-are integers), holds a north-star trace-commit shard, an FRI layer and two
+(and both forms of `dit_cols`: the plain column transform and the first
+member of a forward coset LDE) against its plain PyTorch version on the
+card (exact equality: the words are integers), holds a north-star
+trace-commit shard, an FRI layer and two
 small trees hashed on the card against the host SHA-NI engine, holds the blocks LDE
 route (2^22 rows) and the limb-matmul LDE (2^20 rows) against the fused
 route, proves the frozen golden Fibonacci configuration on the card and
@@ -20,15 +22,19 @@ host-tail switch.)
 
 The last line is `{"ok": true, "device": {...}}`; the line before it lists
 the kernels with their launches (counted on the path named in each row),
-errors, times and bounds. Any failed phase raises: no result line,
-non-zero exit. Without a CUDA device it exits at once. Neither JAX nor the
-JAX package is loaded.
+errors, times and bounds, at the first prove shape and at every shape
+timed against its bound (`shapes`), `dit_cols`'s two forms (`forms`), and
+the launches of the two DIT kernels that `lde_forward` runs on
+(`kernels`). Any failed phase raises: no result line, non-zero exit.
+Without a CUDA device it exits at once. Neither JAX nor the JAX package is
+loaded.
 """
 
 from __future__ import annotations
 
 import hashlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -70,9 +76,16 @@ SHA_TREES = [(28, 5, 1), (3, 13, 2)]
 # column-NTT check shapes (log R, B): the 2^22 prove's (the inverse and
 # forward members of the trace's LDE, width 2, and of the quotient
 # chunk's, width 4), a lane count that is no multiple of the lane tile,
-# the golden padded route's
+# the golden padded route's; and each kernel's (log R, B, inverse) at the
+# prove's shapes, trace first (timed against their bounds for the JSON row;
+# the column form heads `dit_cols`'s row)
 COLS_SHAPES = [(11, 4096), (11, 16384), (11, 8192), (11, 32768), (12, 3000), (2, 4), (3, 4)]
-COLS_REPORTED = {"dit_cols": (11, 16384, False), "dif_cols": (11, 4096, True)}
+COLS_REPORTED = {"dit_cols": [(11, 16384, False), (11, 32768, False)],
+                 "dif_cols": [(11, 4096, True), (11, 8192, True)]}
+# `dit_cols`'s first-member form (log_n, w, log_blowup, with 1/n): the 2^22
+# prove's trace and quotient LDEs (reported, trace first), an odd log_n of
+# width 3
+FIRST_SHAPES = [(22, 2, 2, True), (22, 4, 2, True), (7, 3, 1, False)]
 # limb-matmul check shapes (log R, B, with twiddle): the 2^20 matmul LDE's
 # first member (128 x 2^13 * 2, twiddle in the epilogue) and without it,
 # a member of 2^6 rows, the padded small member
@@ -81,8 +94,8 @@ MATMUL_SHAPES = [(7, 1 << 14, True), (7, 1 << 14, False), (6, 1000, True), (3, 4
 LDE_ROUTES = [(22, "blocks"), (20, "limb matmul")]
 KERNELS = [  # name, replaced TPU kernel, source, path whose launches the JSON line reports
     ("lde_inverse", "tapstark/poly/pallas_ntt.py:480", "tapstark_torch/csrc/coset_lde.cu", "prove 2^20"),  # K1
-    ("lde_forward", "tapstark/poly/pallas_ntt.py:492", "tapstark_torch/csrc/coset_lde.cu", "prove 2^20"),  # K2
-    ("dit_cols", "tapstark/poly/pallas_ntt.py:88", "tapstark_torch/csrc/ntt_cols.cu", "prove 2^22"),  # K3
+    ("lde_forward", "tapstark/poly/pallas_ntt.py:492", "tapstark_torch/csrc/dit_cols.cuh", "prove 2^20"),  # K2
+    ("dit_cols", "tapstark/poly/pallas_ntt.py:88", "tapstark_torch/csrc/dit_cols.cuh", "prove 2^22"),  # K3
     ("dif_cols", "tapstark/poly/pallas_ntt.py:219", "tapstark_torch/csrc/ntt_cols.cu", "prove 2^22"),  # K4
     ("tapleaf_subtrees", "tapstark/hashes/sha256_device.py:76", "tapstark_torch/csrc/sha256.cu", "prove 2^20"),  # K5
     ("tapbranch_levels", "tapstark/hashes/sha256_device.py:354", "tapstark_torch/csrc/sha256.cu", "prove 2^20"),  # K6
@@ -102,9 +115,14 @@ INT32_OPS_PER_S = 132 * 128 * 1.98e9
 ALU_OPS_PER_S = 132 * 64 * 1.98e9
 # dense int8 tensor-core rate (H100 SXM data sheet), two ops per MAC
 INT8_TENSOR_OPS_PER_S = 1979e12
-# 32-bit integer instructions per unit of work, counted from the kernels:
-OPS_BUTTERFLY = 15  # Montgomery product (mul.wide, mul.lo, mul.hi, adds, select) + add + sub
-OPS_MONT_MUL = 8  # a lone Montgomery product (scales, 1/n)
+# 32-bit integer instructions per unit of work, the fewest each needs:
+OPS_BUTTERFLY = 15  # K1's: Montgomery product (mul.wide, mul.lo, mul.hi, adds, select) + add + sub
+OPS_MONT_MUL = 8  # a lone Montgomery product (K1's 1/n)
+OPS_SHOUP_MUL = 3  # w * x - umulhi(ws, x) * p: umulhi and two IMADs, in [0, 2p)
+OPS_REDUCE = 2  # [0, 2p) -> [0, p): a subtract and an unsigned min
+# a lazy Shoup DIT/DIF butterfly (K2, K3, K4): the product, both inputs
+# reduced to [0, p), an add and a subtract (IADD3 with p)
+OPS_SHOUP_BUTTERFLY = OPS_SHOUP_MUL + 2 * OPS_REDUCE + 2
 # SHA-256, by the pipes that can issue each instruction: (ALU only: LOP3
 # logic and the sort's compares and selects; rotates: one funnel shift on
 # the ALU pipe, or two IMADs on the FMA pipe, x * 2^(32-n) + mulhi(x,
@@ -121,10 +139,12 @@ OPS_LIMB_SPLIT = 10  # five shifts and five masks per input word of the limb mat
 OPS_RECOMBINE = 9 * (OPS_MONT_MUL + 3)  # nine bucket products and modular adds per output
 
 
-def bound(ops: float, nbytes: float) -> tuple[float, str]:
-    """(ms, what bounds it): the larger of the two roofline times."""
-    t_ops, t_mem = ops / INT32_OPS_PER_S, nbytes / MEM_BYTES_PER_S
-    return 1e3 * max(t_ops, t_mem), "operations" if t_ops >= t_mem else "bytes"
+def bound(ops: float, nbytes: float) -> tuple[float, str, dict]:
+    """(ms, what bounds it, both times in ms): the larger of the two
+    roofline times."""
+    times = {"bytes": 1e3 * nbytes / MEM_BYTES_PER_S, "operations": 1e3 * ops / INT32_OPS_PER_S}
+    by = max(times, key=times.get)
+    return times[by], by, times
 
 
 def alu_pipe_least(alu: float, rotates: float, shifts: float, adds: float) -> float:
@@ -175,50 +195,81 @@ def levels_bound(r: int, n: int, levels: int, write_first: int) -> tuple[float, 
 
 
 def lde_bounds(log_n: int, w: int, log_blowup: int) -> dict:
+    """K1: n-point Montgomery DIF butterflies and 1/n per element; K2:
+    blow n-point Shoup DIT transforms, each element scaled once (a Shoup
+    product) and made canonical once; each input read once, each output
+    and the twiddle and scale tables read or written once."""
     n, blow = 1 << log_n, 1 << log_blowup
-    ntt_ops = n // 2 * log_n * OPS_BUTTERFLY + n * OPS_MONT_MUL
+    inverse_ops = n // 2 * log_n * OPS_BUTTERFLY + n * OPS_MONT_MUL
+    forward_ops = n // 2 * log_n * OPS_SHOUP_BUTTERFLY + n * (OPS_SHOUP_MUL + OPS_REDUCE)
     return {
-        "lde_inverse": bound(w * ntt_ops, 4 * (2 * n * w + n // 2)),
-        "lde_forward": bound(blow * w * ntt_ops, 4 * (n * w + blow * n + n // 2 + blow * n * w)),
+        "lde_inverse": bound(w * inverse_ops, 4 * (2 * n * w + n // 2)),
+        "lde_forward": bound(blow * w * forward_ops, 4 * (n * w + blow * n + n // 2 + blow * n * w)),
     }
 
 
-def cols_bound(log_r: int, b: int) -> tuple[float, str]:
-    """`dit_cols`/`dif_cols` on (R, B): (R/2)·log R·B butterflies, the
-    matrix read once and written once."""
+def first_bound(log_n: int, w: int, log_blowup: int) -> tuple[float, str, dict]:
+    """`dit_cols`'s first member on (n, w), blowup 2^log_blowup: the
+    R-point Shoup DIT over C·blow·w lanes, two Shoup products per element
+    (block scale, outer twiddle) and a canonical store; the coefficients
+    read once, the (C, R·blow·w) output written once, and its tables
+    (stage pairs, scales, outer twiddle halves) read once."""
+    log_c = log_n // 2
+    log_r, h = log_n - log_c, (log_n + 1) // 2
+    r, c, blow = 1 << log_r, 1 << log_c, 1 << log_blowup
+    lanes = c * blow * w
+    ops = r // 2 * log_r * lanes * OPS_SHOUP_BUTTERFLY + r * lanes * (2 * OPS_SHOUP_MUL + OPS_REDUCE)
+    nbytes = 4 * (r * c * w + r * lanes) + 8 * (r - 1 + blow * (r + c)) + 4 * ((1 << h) + (1 << (log_n - h)))
+    return bound(ops, nbytes)
+
+
+def cols_bound(log_r: int, b: int) -> tuple[float, str, dict]:
+    """`dit_cols`/`dif_cols` on (R, B): (R/2)·log R·B lazy Shoup
+    butterflies and a canonical store per element, the matrix read once
+    and written once."""
     r = 1 << log_r
-    return bound(r // 2 * log_r * b * OPS_BUTTERFLY, 8 * r * b)
+    return bound(r // 2 * log_r * b * OPS_SHOUP_BUTTERFLY + r * b * OPS_REDUCE, 8 * r * b)
 
 
-def matmul_bound(log_r: int, b: int, with_tw: bool) -> tuple[float, str]:
+def matmul_bound(log_r: int, b: int, with_tw: bool) -> tuple[float, str, dict]:
     """`mod_matmul` on (R, B): the larger of 25·R²·B int8 MACs at the dense
     int8 tensor rate, the int32 limb split and epilogue at the issue rate,
     and the bytes (x, the twiddles, the output, W's limb planes)."""
     r = 1 << log_r
-    t_mma = 2 * 25 * r * r * b / INT8_TENSOR_OPS_PER_S
-    t_int = r * b * (OPS_LIMB_SPLIT + OPS_RECOMBINE + (OPS_MONT_MUL if with_tw else 0)) / INT32_OPS_PER_S
-    t_mem = (4 * r * b * (3 if with_tw else 2) + 5 * r * r) / MEM_BYTES_PER_S
-    return 1e3 * max(t_mma, t_int, t_mem), "operations" if max(t_mma, t_int) >= t_mem else "bytes"
+    times = {
+        "bytes": 1e3 * (4 * r * b * (3 if with_tw else 2) + 5 * r * r) / MEM_BYTES_PER_S,
+        "int8 tensor": 1e3 * 2 * 25 * r * r * b / INT8_TENSOR_OPS_PER_S,
+        "int32": 1e3 * r * b * (OPS_LIMB_SPLIT + OPS_RECOMBINE + (OPS_MONT_MUL if with_tw else 0)) / INT32_OPS_PER_S,
+    }
+    by = max(times, key=times.get)
+    return times[by], "bytes" if by == "bytes" else "operations", times
+
+
+# Kernels that must build without spilling (ptxas's report): the SHA-256
+# kernels and the two DIT kernels, each at its 64-register cap.
+NO_SPILL = ("tapleaf_subtrees", "tapbranch_levels", "dit_cols_kernel", "dit_first_kernel")
 
 
 def check_ptxas(report: str) -> None:
     """Print ptxas's register and spill lines for each kernel; fail if a
-    SHA-256 kernel spills, or if the report lacks either of them."""
-    entry, entries, spills = "", [], []
+    kernel of NO_SPILL spills, or if the report gives no spill line for
+    one of them."""
+    entry, seen, spills = "", set(), []
     for line in report.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
-            entries.append(entry)
         elif "registers" in line or "spill" in line:
             print(f"ptxas {entry}: {line.split(':', 1)[-1].strip()}")
-            if "spill" in line and ("0 bytes spill stores" not in line or "0 bytes spill loads" not in line):
-                spills.append((entry, line.strip()))
-    for kernel in ("tapleaf_subtrees", "tapbranch_levels"):
-        if not any(kernel in e for e in entries):
-            raise AssertionError(f"ptxas's report names no {kernel} kernel")
-    sha = [x for x in spills if "tapleaf" in x[0] or "tapbranch" in x[0]]
-    if sha:
-        raise AssertionError(f"SHA-256 kernels spill: {sha}")
+            for kernel in NO_SPILL:
+                if kernel in entry and "spill" in line:
+                    seen.add(kernel)
+                    if any(int(b) for b in re.findall(r"(\d+) bytes spill", line)):
+                        spills.append((entry, line.strip()))
+    missing = set(NO_SPILL) - seen
+    if missing:
+        raise AssertionError(f"ptxas's report gives no spill line for {sorted(missing)}")
+    if spills:
+        raise AssertionError(f"kernels spill: {spills}")
 
 
 def phase(name: str) -> None:
@@ -284,21 +335,23 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor, where) -> int:
     return err
 
 
-def record(stats: dict, name: str, err: int, run_kernel, run_plain, where, bnd=None, report=True) -> None:
-    """Time kernel and plain version; when `bnd` is given, print it and,
-    if `report`, keep the numbers for the JSON line (its reported shape)."""
+def record(stats: dict, name: str, err: int, run_kernel, run_plain, where, bnd=None, form=None) -> None:
+    """Time kernel and plain version and print them; with a bound `bnd`
+    (ms, what bounds it, the times it is the larger of), print it and keep
+    the numbers among the kernel's `shapes`, with `form` for a kernel of
+    two forms. `kernel_rows` heads each JSON row with its first `shapes`
+    entry, and each form with the form's first."""
     ms = median_ms(run_kernel, 20)
     plain_ms = median_ms(run_plain, 5)
-    s = stats.setdefault(name, {"max_abs_err": 0})
+    s = stats.setdefault(name, {"max_abs_err": 0, "shapes": []})
     s["max_abs_err"] = max(s["max_abs_err"], err)
     extra = ""
     if bnd is not None:
-        extra = f", bound {bnd[0]:.4f} ms ({bnd[1]})"
-        if len(bnd) > 2:  # the SHA kernels' three times
-            extra += " = max(" + ", ".join(f"{k} {v:.4f}" for k, v in bnd[2].items()) + ")"
-        if report:
-            s.update(ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1])
-    print(f"kernel {name} {where}: equal, {ms:.4f} ms, plain {plain_ms:.4f} ms{extra}", flush=True)
+        extra = f", bound {bnd[0]:.4f} ms ({bnd[1]}) = max(" + ", ".join(f"{k} {v:.4f}" for k, v in bnd[2].items()) + ")"
+        s["shapes"].append({"at": where, **({"form": form} if form else {}),
+                            "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1]})
+    label = f"{name} ({form})" if form else name
+    print(f"kernel {label} {where}: equal, {ms:.4f} ms, plain {plain_ms:.4f} ms{extra}", flush=True)
 
 
 def check_lde_kernels(dev, stats: dict) -> None:
@@ -314,7 +367,8 @@ def check_lde_kernels(dev, stats: dict) -> None:
         evals = torch.from_numpy(np_to_mont(canon).view(np.int32)).to(dev)
         coeffs = cuda_ntt.lde_inverse(evals)
         where = f"log_n={log_n} w={w} log_blowup={log_blowup}"
-        bounds = lde_bounds(log_n, w, log_blowup) if (log_n, w, log_blowup) == LDE_SHAPES[0] else {}
+        # the north star's trace and quotient shapes (the first two) are reported
+        bounds = lde_bounds(log_n, w, log_blowup) if (log_n, w, log_blowup) in LDE_SHAPES[:2] else {}
         err = compare("lde_inverse", coeffs, cuda_ntt.lde_inverse_plain(evals), where)
         record(stats, "lde_inverse", err, lambda: cuda_ntt.lde_inverse(evals),
                lambda: cuda_ntt.lde_inverse_plain(evals), where, bounds.get("lde_inverse"))
@@ -334,7 +388,9 @@ def _mont_on(dev, rng, *shape) -> torch.Tensor:
 
 def check_cols_kernels(dev, stats: dict) -> None:
     """K3/K4's counterparts against their plain versions at every
-    COLS_SHAPES entry, in both directions."""
+    COLS_SHAPES entry, in both directions, then `dit_cols`'s first-member
+    form at every FIRST_SHAPES entry."""
+    from tapstark_torch.field.constants import MULT_GENERATOR as shift
     from tapstark_torch.poly import cols_ntt
 
     rng = np.random.default_rng(5)
@@ -342,13 +398,22 @@ def check_cols_kernels(dev, stats: dict) -> None:
         x = _mont_on(dev, rng, 1 << log_r, b)
         for inverse in (False, True):
             where = f"R=2^{log_r} B={b} inverse={inverse}"
-            for name, kernel, plain in (
-                ("dit_cols", cols_ntt.dit_cols, cols_ntt.dit_cols_plain),
-                ("dif_cols", cols_ntt.dif_cols, cols_ntt.dif_cols_plain),
+            for name, kernel, plain, form in (
+                ("dit_cols", cols_ntt.dit_cols, cols_ntt.dit_cols_plain, "cols"),
+                ("dif_cols", cols_ntt.dif_cols, cols_ntt.dif_cols_plain, None),
             ):
                 err = compare(name, kernel(x, log_r, inverse), plain(x, log_r, inverse), where)
+                bnd = cols_bound(log_r, b) if (log_r, b, inverse) in COLS_REPORTED[name] else None
                 record(stats, name, err, lambda: kernel(x, log_r, inverse), lambda: plain(x, log_r, inverse),
-                       where, cols_bound(log_r, b), COLS_REPORTED[name] == (log_r, b, inverse))
+                       where, bnd, form)
+    for log_n, w, log_blowup, n_inv in FIRST_SHAPES:
+        x = _mont_on(dev, rng, 1 << log_n, w)
+        where = f"first member n=2^{log_n} w={w} log_blowup={log_blowup} 1/n={n_inv}"
+        run = lambda: cols_ntt.dit_cols_first(x, log_blowup, shift, n_inv)  # noqa: E731
+        plain = lambda: cols_ntt.dit_cols_first_plain(x, log_blowup, shift, n_inv)  # noqa: E731
+        err = compare("dit_cols", run(), plain(), where)
+        bnd = first_bound(log_n, w, log_blowup) if (log_n, w, log_blowup, n_inv) in FIRST_SHAPES[:2] else None
+        record(stats, "dit_cols", err, run, plain, where, bnd, "first")
 
 
 def int_mm_dots_ms(x: torch.Tensor, log_r: int, inverse: bool) -> float:
@@ -364,7 +429,8 @@ def int_mm_dots_ms(x: torch.Tensor, log_r: int, inverse: bool) -> float:
 def check_matmul_kernel(dev, stats: dict) -> None:
     """K7's counterpart against its plain version at every MATMUL_SHAPES
     entry, in both directions; the first shape's times go to the JSON line,
-    with the 25 limb dots through `torch._int_mm` as the library time."""
+    with the 25 limb dots through `torch._int_mm` as the library time
+    (inverse first: the JSON row's)."""
     from tapstark_torch.field.constants import P
     from tapstark_torch.poly import matmul_ntt as mm
 
@@ -372,15 +438,14 @@ def check_matmul_kernel(dev, stats: dict) -> None:
     for i, (log_r, b, with_tw) in enumerate(MATMUL_SHAPES):
         x = torch.from_numpy(rng.integers(0, P, (1 << log_r, b)).astype(np.int32)).to(dev)  # canonical
         tw = _mont_on(dev, rng, 1 << log_r, b) if with_tw else None
-        for inverse in (False, True):
+        for inverse in (True, False):
             where = f"R=2^{log_r} B={b} twiddle={with_tw} inverse={inverse}"
             err = compare("mod_matmul", mm.mod_matmul(x, log_r, inverse, tw),
                           mm.mod_matmul_plain(x, log_r, inverse, tw), where)
-            report = i == 0 and inverse
             record(stats, "mod_matmul", err, lambda: mm.mod_matmul(x, log_r, inverse, tw),
                    lambda: mm.mod_matmul_plain(x, log_r, inverse, tw), where,
-                   matmul_bound(log_r, b, with_tw), report)
-            if report:
+                   matmul_bound(log_r, b, with_tw) if i == 0 else None)
+            if i == 0 and inverse:
                 lib_ms = int_mm_dots_ms(x, log_r, inverse)
                 stats["mod_matmul"]["library_ms"] = lib_ms
                 print(f"library: the 25 limb dots alone through torch._int_mm at {where}: {lib_ms:.4f} ms")
@@ -427,7 +492,7 @@ def check_sha_kernels(dev, stats: dict) -> None:
         # the JSON line reports the one-block form (the trace and quotient commits')
         record(stats, "tapleaf_subtrees", err, lambda: sd.tapleaf_subtrees(mids, suffix, rem, levels),
                lambda: sd.tapleaf_subtrees_plain(mids, suffix, rem, levels), where,
-               leaf_bound(r, n, nb, levels), nb == 1)
+               leaf_bound(r, n, nb, levels))
 
     r, n = SHA_LEVELS_IN
     level = words(8, r, n)
@@ -439,7 +504,7 @@ def check_sha_kernels(dev, stats: dict) -> None:
                       sd.tapbranch_levels_plain(level, k, write_first), where)
         record(stats, "tapbranch_levels", err, lambda: sd.tapbranch_levels(level, k, write_first),
                lambda: sd.tapbranch_levels_plain(level, k, write_first), where,
-               levels_bound(r, n, k, write_first), write_first == k)
+               levels_bound(r, n, k, write_first))
 
     rng = np.random.default_rng(9)
     for r, depth, nb in SHA_TREES:
@@ -571,6 +636,44 @@ def run_prove(name: str, dev, cfg: dict, frozen) -> dict:
     return launches
 
 
+def kernel_rows(stats: dict, path_launches: dict) -> list:
+    """The JSON line's rows, one per KERNELS entry: each headed by its
+    first `shapes` entry (`record`), with each form's first entry under
+    `forms`, and launches read on the row's path."""
+
+    def numbers(entry: dict) -> dict:
+        return {k: entry[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+
+    rows = []
+    for name, replaces, source, path in KERNELS:
+        s, counts = stats[name], path_launches[path]
+        row = {
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": counts[name],
+            "path": path,
+            "max_abs_err": s["max_abs_err"],
+            **numbers(s["shapes"][0]),
+            # no PyTorch call computes a modular NTT or SHA-256; K7's is its
+            # limb dots alone through torch._int_mm
+            "library_ms": s.get("library_ms"),
+            "shapes": s["shapes"],
+        }
+        forms = {}
+        for entry in s["shapes"]:
+            if "form" in entry and entry["form"] not in forms:
+                forms[entry["form"]] = {"launches": counts[f"{name}.{entry['form']}"], "at": entry["at"],
+                                        **numbers(entry)}
+        if forms:
+            row["forms"] = forms
+        if name == "lde_forward":  # K2 runs on K3's two DIT kernels: their launches on its path
+            row["kernels"] = {k: counts[k] for k in ("dit_cols.first", "dit_cols.cols")}
+        rows.append(row)
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -623,13 +726,14 @@ def main() -> int:
 
     phase("north-star prove on cuda (fused LDE route)")
     launches = path_launches["prove 2^20"] = run_prove("north star", dev, NORTH_STAR, PROOF_2_20)
-    for name in ("lde_inverse", "lde_forward", "tapleaf_subtrees", "tapbranch_levels"):
+    for name in ("lde_inverse", "lde_forward", "dit_cols.first", "dit_cols.cols", "tapleaf_subtrees",
+                 "tapbranch_levels"):
         if launches[name] == 0:
             raise AssertionError(f"{name} was never launched on the north-star path: {launches}")
 
     phase("2^22 prove on cuda (blocks LDE route)")
     launches = path_launches["prove 2^22"] = run_prove("blocks route", dev, BLOCKS_PROVE, PROOF_2_22)
-    for name in ("dit_cols", "dif_cols", "tapleaf_subtrees", "tapbranch_levels"):
+    for name in ("dit_cols", "dit_cols.first", "dit_cols.cols", "dif_cols", "tapleaf_subtrees", "tapbranch_levels"):
         if launches[name] == 0:
             raise AssertionError(f"{name} was never launched on the 2^22 path: {launches}")
     if launches["lde_inverse"] or launches["lde_forward"]:
@@ -642,25 +746,7 @@ def main() -> int:
     if loaded:
         raise AssertionError(f"JAX or the JAX package was imported: {loaded}")
 
-    kernels = [
-        {
-            "name": name,
-            "route": "cuda",
-            "source": source,
-            "replaces": replaces,
-            "launches": path_launches[path][name],
-            "path": path,
-            "max_abs_err": stats[name]["max_abs_err"],
-            "ms": stats[name]["ms"],
-            "plain_ms": stats[name]["plain_ms"],
-            "bound_ms": stats[name]["bound_ms"],
-            "bound_by": stats[name]["bound_by"],
-            # no PyTorch call computes a modular NTT or SHA-256; K7's is its
-            # limb dots alone through torch._int_mm
-            "library_ms": stats[name].get("library_ms"),
-        }
-        for name, replaces, source, path in KERNELS
-    ]
+    kernels = kernel_rows(stats, path_launches)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}

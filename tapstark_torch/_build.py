@@ -57,13 +57,14 @@ _ptr, _i32, _u32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.
 SIGNATURES = {
     "tapstark_lde_constants": ([_ptr], None),
     "tapstark_lde_inverse": ([_ptr, _ptr, _ptr, _i32, _i32, _u32, _ptr], _i32),
-    "tapstark_lde_forward": ([_ptr, _ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _ptr], _i32),
     "tapstark_sha256_constants": ([_ptr], _i32),
     "tapstark_sha256_tiling": ([_ptr], None),
     "tapstark_tapleaf_subtrees": ([_ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _ptr, _i64, _i64, _ptr], _i32),
     "tapstark_tapbranch_levels": ([_ptr, _i64, _i64, _i32, _i32, _i32, _i32, _ptr, _i64, _i64, _ptr], _i32),
     "tapstark_ntt_cols_max_log_r": ([], _i32),
-    "tapstark_ntt_cols": ([_ptr, _ptr, _ptr, _i32, _i64, _i32, _ptr], _i32),
+    "tapstark_dif_cols": ([_ptr, _ptr, _ptr, _i32, _i64, _ptr], _i32),
+    "tapstark_dit_cols": ([_ptr, _ptr, _ptr, _i32, _i64, _ptr], _i32),
+    "tapstark_dit_first": ([_ptr, _i64, _i64, *[_ptr] * 6, _i32, _i32, _i32, _i32, _i32, _ptr], _i32),
     "tapstark_matmul_constants": ([_ptr], _i32),
     "tapstark_limb_matmul": ([_ptr, _ptr, _ptr, _ptr, _i32, _i64, _ptr], _i32),
 }

@@ -4,22 +4,31 @@ of the non-fused routes of `tapstark/poly/pallas_ntt.py`).
 - `dit_cols` replaces `_butterfly_kernel` (K3, via `_ntt_cols_pallas`):
   the transform down axis 0 of an (R, B) Montgomery matrix, rows
   bit-reversed in, natural out, no 1/n.
+- `dit_cols_first` is K3 again, as the first member of a forward coset
+  LDE with the route's glue taken into the kernel: (n, w) coefficients in
+  bitrev_n order → B[p2, (k1, rb, w)] = the R-point DIT of block rb's
+  scaled coefficients p2·R .. p2·R + R - 1, times the outer twiddle
+  (`dit_cols_first_plain` is the composition it replaces).
 - `dif_cols` replaces `_dif_butterfly_kernel` (K4, via `_dif_cols_pallas`):
   natural in, bit-reversed out.
 
-Each wrapper runs its kernel (`tapstark_torch/csrc/ntt_cols.cu`) for a
-CUDA tensor and its plain version for a CPU tensor, and raises for
-anything else. The pipelines around them are plain torch on the tensor's
-device, as in the reference: bit-reversal gathers, outer twiddles,
-transposes and 1/n.
+Each wrapper runs its kernel (`tapstark_torch/csrc/ntt_cols.cu`,
+`dit_cols.cuh`) for a CUDA tensor and its plain version for a CPU tensor,
+and raises for anything else. The pipelines around them:
 
-- `ntt_cols_fourstep` is `ntt_pallas`; `intt_to_bitrev` and
-  `ntt_from_bitrev` are `intt_to_bitrev_pallas` and
+- `ntt_cols_fourstep` is `ntt_pallas`; `intt_to_bitrev_unscaled` is
+  `intt_to_bitrev_pallas` without its 1/n, and `dit_cols_first` with one
+  block and no shift, then `dit_cols` over its C rows, is
   `ntt_from_bitrev_pallas`;
 - `coset_lde_padded` is `coset_lde_batch_pallas` (the zero-padded LDE);
 - `coset_lde_blocks` is `coset_lde_batch_pallas_blocks` (`blow` pre-scaled
   n-point NTTs as one NTT of width blow·w), which `coset_lde_batch_auto`
-  takes for every trace outside 2^8–2^21 rows.
+  takes for every trace outside 2^8–2^21 rows. Its forward half is the two
+  `dit_cols` launches alone (`dit_cols_first`, whose scale table carries
+  the inverse half's 1/n, then `dit_cols` over the C rows of its output,
+  which are already the natural (blow·n, w) rows); the inverse half is
+  `dif_cols` with plain torch between its launches (bit-reversal-free, but
+  the outer twiddle and both transposes are eager), as in the reference.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ from ..field.constants import P, two_adic_generator
 from ..field.device import fp_const, fp_mul
 from ..utils import log2_strict
 from .cuda_ntt import _check_cuda, _raise_on, _stream_ptr, block_scales
+from .dit_tables import dit_stage_pairs_dev, first_member_tables_dev
 from .ntt import _butterfly_stages, bit_reverse_rows, intt, ntt, scale_by_shift_powers
 from .powers import bitrev_indices_dev, geom_powers_mont_dev
 
@@ -41,9 +51,13 @@ from .powers import bitrev_indices_dev, geom_powers_mont_dev
 # field's largest two-adic size, is 14 + 13.
 MAX_LOG_R = 14
 
-# Launches of each kernel since the last reset (one per wrapper call that
-# reached the card).
-launches = {"dit_cols": 0, "dif_cols": 0}
+# Launches since the last reset. "dit_cols" and "dif_cols": one per call of
+# their wrappers that reached the card ("dit_cols" for both of its forms).
+# "dit_cols.first" and "dit_cols.cols": one per launch of the two DIT
+# kernels (`dit_first_kernel`, `dit_cols_kernel` of csrc/dit_cols.cuh),
+# whichever wrapper made it: `dit_cols`'s two forms, or
+# `cuda_ntt.lde_forward`, which runs on the same pair.
+launches = {"dit_cols": 0, "dit_cols.first": 0, "dit_cols.cols": 0, "dif_cols": 0}
 
 
 def reset_launch_counts() -> None:
@@ -130,20 +144,53 @@ def _cols(mat: torch.Tensor, log_r: int, inverse: bool, dif: bool) -> torch.Tens
     _check_cuda(mat, name)
     if not 1 <= log_r <= MAX_LOG_R or mat.shape[1] < 1:
         raise ValueError(f"{name}: shape {tuple(mat.shape)} unsupported (1 <= log R <= {MAX_LOG_R})")
-    from .._build import load_library
-
-    lib = load_library()
     dev = mat.device
-    tw = _twiddles_dev(log_r, inverse, dev)
     out = torch.empty_like(mat)
-    with torch.cuda.device(dev):
-        err = lib.tapstark_ntt_cols(
-            mat.data_ptr(), out.data_ptr(), tw.data_ptr(), log_r, mat.shape[1], int(dif),
-            _stream_ptr(dev),
-        )
-    _raise_on(err, name)
+    if dif:
+        from .._build import load_library
+
+        tw = _twiddles_dev(log_r, inverse, dev)
+        with torch.cuda.device(dev):
+            err = load_library().tapstark_dif_cols(mat.data_ptr(), out.data_ptr(), tw.data_ptr(), log_r,
+                                                   mat.shape[1], _stream_ptr(dev))
+        _raise_on(err, name)
+    else:
+        launch_dit_cols(mat, out, log_r, inverse, name)
     launches[name] += 1
     return out
+
+
+def launch_dit_cols(src: torch.Tensor, dst: torch.Tensor, log_r: int, inverse: bool, what: str) -> None:
+    """`dit_cols_kernel` on the card: src (R, B) → dst (as many words),
+    DIT down axis 0, rows bit-reversed in, natural out."""
+    from .._build import load_library
+
+    dev = src.device
+    tw = dit_stage_pairs_dev(log_r, inverse, dev)
+    with torch.cuda.device(dev):
+        err = load_library().tapstark_dit_cols(src.data_ptr(), dst.data_ptr(), tw.data_ptr(), log_r, src.shape[1],
+                                               _stream_ptr(dev))
+    _raise_on(err, what)
+    launches["dit_cols.cols"] += 1
+
+
+def launch_dit_first(x: torch.Tensor, x_row: int, x_col: int, out: torch.Tensor, log_r: int, log_c: int,
+                     log_blowup: int, w: int, shift: int, n_inv: bool, what: str) -> None:
+    """`dit_first_kernel` on the card: the n = R·C coefficients of w
+    columns, coefficient j (bitrev_n order) of column c at x's word
+    j·x_row + c·x_col → out (C, R·blow·w), B[p2, (k1, rb, c)]."""
+    from .._build import load_library
+
+    dev = x.device
+    tw = dit_stage_pairs_dev(log_r, False, dev)
+    t = first_member_tables_dev(log_r, log_c, log_blowup, shift % P, n_inv, dev)
+    with torch.cuda.device(dev):
+        err = load_library().tapstark_dit_first(
+            x.data_ptr(), x_row, x_col, out.data_ptr(), tw.data_ptr(), t["s1"].data_ptr(), t["s2"].data_ptr(),
+            t["hi"].data_ptr(), t["lo"].data_ptr(), log_r, log_c, t["h"], log_blowup, w, _stream_ptr(dev),
+        )
+    _raise_on(err, what)
+    launches["dit_cols.first"] += 1
 
 
 def dit_cols(mat: torch.Tensor, log_r: int, inverse: bool) -> torch.Tensor:
@@ -156,6 +203,48 @@ def dif_cols(mat: torch.Tensor, log_r: int, inverse: bool) -> torch.Tensor:
     """Column NTTs of an (R, B) Montgomery matrix: natural in, rows
     bit-reversed out, no 1/n."""
     return _cols(mat, log_r, inverse, dif=True)
+
+
+def dit_cols_first_plain(coeffs_brv: torch.Tensor, log_blowup: int, shift: int, n_inv: bool = False) -> torch.Tensor:
+    """The composition `dit_cols_first` replaces: scale block rb by the
+    powers of shift·w_N^rb (`block_scales`, and by 1/n if n_inv), view
+    (C, R, blow·w) and transpose to (R, C·blow·w), `dit_cols_plain` over R,
+    outer twiddle w_n^{k1·brv_C(p2)}, transpose to (C, R·blow·w)."""
+    n, w = coeffs_brv.shape
+    log_n = log2_strict(n)
+    log_r, log_c = split(log_n)
+    r, c, width = 1 << log_r, 1 << log_c, w << log_blowup
+    dev = coeffs_brv.device
+    scaled = fp_mul(coeffs_brv[:, None, :], block_scales(log_n, log_blowup, shift % P, dev).T[:, :, None])
+    if n_inv:
+        scaled = fp_mul(scaled, fp_const(pow(n, P - 2, P)))
+    m = scaled.reshape(c, r, width).transpose(0, 1).reshape(r, c * width)  # rows brv_R(i1)
+    a = dit_cols_plain(m, log_r, False)  # A[k1, (brv_C(i2), rb, w)]
+    a = fp_mul(a.reshape(r, c, width), outer_twiddle_brv_cols(log_r, log_c, False, dev)[:, :, None])
+    return a.transpose(0, 1).reshape(c, r * width).contiguous()  # B[brv_C(i2), (k1, rb, w)]
+
+
+def dit_cols_first(coeffs_brv: torch.Tensor, log_blowup: int, shift: int, n_inv: bool = False) -> torch.Tensor:
+    """(n, w) Montgomery coefficients in bitrev_n order → (C, R·blow·w):
+    the first member of a forward coset LDE on shift·<w_N> (N = blow·n),
+    `dit_cols_first_plain`'s function; `dit_cols` over its C rows finishes
+    the LDE."""
+    if coeffs_brv.dim() != 2:
+        raise ValueError(f"dit_cols_first: expected (n, w), got shape {tuple(coeffs_brv.shape)}")
+    if coeffs_brv.device.type == "cpu":
+        return dit_cols_first_plain(coeffs_brv, log_blowup, shift, n_inv)
+    if coeffs_brv.device.type != "cuda":
+        raise ValueError(f"dit_cols_first: no path for device {coeffs_brv.device}")
+    _check_cuda(coeffs_brv, "dit_cols_first")
+    n, w = coeffs_brv.shape
+    log_n = log2_strict(n)
+    log_r, log_c = split(log_n)
+    if not (1 <= log_r <= MAX_LOG_R and log_blowup >= 0 and (w << log_blowup) < 1 << 31):
+        raise ValueError(f"dit_cols_first: shape {(n, w)}, log_blowup {log_blowup} unsupported")
+    out = torch.empty((1 << log_c, (w << log_blowup) << log_r), dtype=torch.int32, device=coeffs_brv.device)
+    launch_dit_first(coeffs_brv, w, 1, out, log_r, log_c, log_blowup, w, shift, n_inv, "dit_cols_first")
+    launches["dit_cols"] += 1
+    return out
 
 
 def ntt_cols_fourstep(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
@@ -179,9 +268,10 @@ def ntt_cols_fourstep(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
     return out
 
 
-def intt_to_bitrev(evals: torch.Tensor) -> torch.Tensor:
-    """(n, w) natural evaluations → coefficients in bitrev_n order, times
-    1/n (twin of `intt_to_bitrev_pallas`)."""
+def intt_to_bitrev_unscaled(evals: torch.Tensor) -> torch.Tensor:
+    """(n, w) natural evaluations → coefficients in bitrev_n order, without
+    the 1/n of `intt_to_bitrev_pallas` (the blocks route folds it into the
+    forward half's scale table)."""
     n, w = evals.shape
     log_n = log2_strict(n)
     log_r, log_c = split(log_n)
@@ -191,24 +281,7 @@ def intt_to_bitrev(evals: torch.Tensor) -> torch.Tensor:
     a = fp_mul(a.reshape(r, c, w), outer_twiddle_brv_rows(log_r, log_c, True, dev)[:, :, None])
     b = a.transpose(0, 1).reshape(c, r * w).contiguous()  # B[i2, (p1, w)]
     y = dif_cols(b, log_c, True)  # Y[p2, (p1, w)]
-    out = y.reshape(c, r, w).transpose(0, 1).reshape(n, w)  # flat p1·C + p2
-    return fp_mul(out, fp_const(pow(n, P - 2, P)))
-
-
-def ntt_from_bitrev(coeffs_brv: torch.Tensor) -> torch.Tensor:
-    """(n, w) coefficients in bitrev_n order → natural evaluations (twin of
-    `ntt_from_bitrev_pallas`)."""
-    n, w = coeffs_brv.shape
-    log_n = log2_strict(n)
-    log_r, log_c = split(log_n)
-    r, c = 1 << log_r, 1 << log_c
-    dev = coeffs_brv.device
-    # flat bitrev_n index brv_C(i2)·R + brv_R(i1): view (C, R), swap to (R, C)
-    m = coeffs_brv.reshape(c, r, w).transpose(0, 1).reshape(r, c * w).contiguous()
-    a = dit_cols(m, log_r, False)  # A[k1, (brv_C(i2), w)]
-    a = fp_mul(a.reshape(r, c, w), outer_twiddle_brv_cols(log_r, log_c, False, dev)[:, :, None])
-    b = a.transpose(0, 1).reshape(c, r * w).contiguous()  # B[brv_C(i2), (k1, w)]
-    return dit_cols(b, log_c, False).reshape(n, w)  # flat k2·R + k1 = k
+    return y.reshape(c, r, w).transpose(0, 1).reshape(n, w)  # flat p1·C + p2
 
 
 def coset_lde_padded(evals: torch.Tensor, log_blowup: int, shift: int) -> torch.Tensor:
@@ -232,9 +305,7 @@ def coset_lde_blocks(evals: torch.Tensor, log_blowup: int, shift: int) -> torch.
     log_n = log2_strict(n)
     if log_n < 4:
         return coset_lde_padded(evals, log_blowup, shift)
-    blow = 1 << log_blowup
-    coeffs_brv = intt_to_bitrev(evals)
-    scales = block_scales(log_n, log_blowup, shift % P, evals.device)  # (blow, n)
-    scaled = fp_mul(coeffs_brv[:, None, :], scales.T[:, :, None])  # (n, blow, w)
-    y = ntt_from_bitrev(scaled.reshape(n, blow * w))  # y[m, (rb, w)]
-    return y.reshape(n * blow, w)
+    coeffs_brv = intt_to_bitrev_unscaled(evals)
+    b = dit_cols_first(coeffs_brv, log_blowup, shift, n_inv=True)  # B[p2, (k1, rb, w)]
+    y = dit_cols(b, split(log_n)[1], False)  # y[k2, (k1, rb, w)], k = k2·R + k1
+    return y.reshape(n << log_blowup, w)

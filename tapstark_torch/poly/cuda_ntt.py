@@ -1,5 +1,6 @@
-"""The coset LDE on the card: wrappers of the two kernels in
-`tapstark_torch/csrc/coset_lde.cu` and their plain versions.
+"""The fused coset LDE on the card: `lde_inverse` (its kernel in
+`tapstark_torch/csrc/coset_lde.cu`) and `lde_forward` (on the two DIT
+kernels of `csrc/dit_cols.cuh`), and their plain versions.
 
 - `lde_inverse` replaces `_fused_intt_kernel` (K1) of
   tapstark/poly/pallas_ntt.py: evaluations (n, w) natural order →
@@ -8,11 +9,16 @@
   `lde_inverse` leaves them → (n·2^log_blowup, w) natural-order evaluations
   on shift·<w_N>: block rb scales coefficient j by (shift·w_N^rb)^j, runs a
   size-n NTT and fills rows k·blow + rb. The zero-padded N-row array of
-  the plain `coset_lde_batch` is never built.
+  the plain `coset_lde_batch` is never built. On the card it is the
+  four-step DIT pair of `csrc/dit_cols.cuh` (split by `forward_split`),
+  launched through `cols_ntt.launch_dit_first` and `launch_dit_cols`: its
+  launches count under "lde_forward" here and under those kernels' own
+  keys in `cols_ntt.launches`.
 
 Each wrapper runs its kernel for a CUDA tensor and its plain version for a
-CPU tensor, and raises for anything else. The source note in the .cu file
-says what bounds the kernels on an H100 and what the design does about it.
+CPU tensor, and raises for anything else. The source notes
+(`csrc/coset_lde.cu`, `csrc/dit_cols.cuh`) say what bounds the kernels on
+an H100 and what the design does about it.
 """
 
 from __future__ import annotations
@@ -28,8 +34,12 @@ from ..utils import log2_strict
 from .ntt import bit_reverse_rows, intt, ntt, scale_by_shift_powers
 from .powers import bitrev_indices_dev, geom_powers_mont_dev
 
-# Launches of each kernel since the last reset (one per wrapper call that
-# reached the card).
+# `lde_forward`'s first member keeps 2^11 rows (64 KiB tiles of 8 lanes)
+# and leaves the rest, at most 2^14 rows, to the second.
+FORWARD_LOG_R = 11
+MAX_FORWARD_LOG_C = 14
+
+# Launches since the last reset: one per wrapper call that reached the card.
 launches = {"lde_inverse": 0, "lde_forward": 0}
 
 
@@ -39,12 +49,9 @@ def reset_launch_counts() -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def twiddles(log_n: int, inverse: bool, device) -> torch.Tensor:
-    """(n/2,) Montgomery powers w_n^e (w_n^{-e} if inverse) on `device`."""
-    g = two_adic_generator(log_n)
-    if inverse:
-        g = pow(g, P - 2, P)
-    return geom_powers_mont_dev(g, log_n - 1, 1, device)
+def inverse_twiddles(log_n: int, device) -> torch.Tensor:
+    """(n/2,) Montgomery powers w_n^{-e} on `device`."""
+    return geom_powers_mont_dev(pow(two_adic_generator(log_n), P - 2, P), log_n - 1, 1, device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -59,6 +66,13 @@ def block_scales(log_n: int, log_blowup: int, shift: int, device) -> torch.Tenso
     ]
     brv = bitrev_indices_dev(log_n, device)
     return torch.stack(rows).index_select(1, brv).contiguous()
+
+
+def forward_split(log_n: int) -> tuple[int, int]:
+    """(log R, log C) of `lde_forward`'s two members; log C = 0 is one
+    launch."""
+    log_r = min(log_n, max(FORWARD_LOG_R, log_n - MAX_FORWARD_LOG_C))
+    return log_r, log_n - log_r
 
 
 def _check_cuda(x: torch.Tensor, name: str) -> None:
@@ -103,7 +117,7 @@ def lde_inverse(evals: torch.Tensor) -> torch.Tensor:
     from .._build import load_library
 
     lib = load_library()
-    tw = twiddles(log_n, True, evals.device)
+    tw = inverse_twiddles(log_n, evals.device)
     out = torch.empty((w, n), dtype=torch.int32, device=evals.device)
     with torch.cuda.device(evals.device):
         err = lib.tapstark_lde_inverse(
@@ -125,23 +139,17 @@ def lde_forward(coeffs_brv: torch.Tensor, log_blowup: int, shift: int) -> torch.
     _check_cuda(coeffs_brv, "lde_forward")
     w, n = coeffs_brv.shape
     log_n = log2_strict(n)
-    if not (1 <= log_n and 0 <= log_blowup and log_n + log_blowup <= 27 and 1 <= w <= 65535):
+    if not (1 <= log_n and 0 <= log_blowup and log_n + log_blowup <= 27 and 1 <= w <= 65535
+            and (w << log_blowup) < 1 << 31):
         raise ValueError(f"lde_forward: shape {(w, n)}, log_blowup {log_blowup} unsupported")
-    from .._build import load_library
+    from .cols_ntt import launch_dit_cols, launch_dit_first
 
-    lib = load_library()
-    dev = coeffs_brv.device
-    tw = twiddles(log_n, False, dev)
-    scales = block_scales(log_n, log_blowup, shift % P, dev)
-    blow = 1 << log_blowup
-    scratch = torch.empty((blow, w, n), dtype=torch.int32, device=dev)
-    out = torch.empty((n * blow, w), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.tapstark_lde_forward(
-            coeffs_brv.data_ptr(), scratch.data_ptr(), out.data_ptr(), tw.data_ptr(),
-            scales.data_ptr(), log_n, log_blowup, w, _stream_ptr(dev),
-        )
-    _raise_on(err, "lde_forward")
+    log_r, log_c = forward_split(log_n)
+    out = torch.empty((n << log_blowup, w), dtype=torch.int32, device=coeffs_brv.device)
+    b = torch.empty((1 << log_c, (w << log_blowup) << log_r), dtype=torch.int32, device=out.device) if log_c else out
+    launch_dit_first(coeffs_brv, 1, n, b, log_r, log_c, log_blowup, w, shift, False, "lde_forward")
+    if log_c:
+        launch_dit_cols(b, out, log_c, False, "lde_forward")
     launches["lde_forward"] += 1
     return out
 

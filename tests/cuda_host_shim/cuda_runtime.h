@@ -1,0 +1,38 @@
+// Stand-ins for the CUDA built-ins that tapstark_torch/csrc/dit_cols.cuh
+// uses, so that its kernels compile with g++ and run on the host for the
+// tests: one std::thread per CUDA thread, one block at a time, a
+// std::barrier for __syncthreads (see dit_host.cpp).
+#pragma once
+#include <barrier>
+#include <cstddef>
+#include <cstdint>
+
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+struct uint2 {
+  uint32_t x, y;
+};
+
+extern thread_local dim3 threadIdx, blockIdx;
+extern dim3 blockDim;
+extern std::barrier<>* host_block_barrier;
+
+inline void __syncthreads() { host_block_barrier->arrive_and_wait(); }
+inline uint32_t __umulhi(uint32_t a, uint32_t b) {
+  return static_cast<uint32_t>((static_cast<uint64_t>(a) * b) >> 32);
+}
+inline uint32_t __brev(uint32_t x) {
+  uint32_t r = 0;
+  for (int i = 0; i < 32; ++i, x >>= 1) r = (r << 1) | (x & 1u);
+  return r;
+}
+
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __shared__
+#define __grid_constant__

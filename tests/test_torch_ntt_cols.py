@@ -2,12 +2,17 @@
 (tapstark_torch.poly.cols_ntt) against the JAX package's Pallas routes
 (tapstark/poly/pallas_ntt.py), word for word.
 
-On the CPU `dit_cols` and `dif_cols` run their plain versions; the JAX
-side runs K3 and K4 in Pallas interpret mode, or the jitted plain LDE.
-The CUDA kernels are held against the plain versions by the
-`cuda`-marked tests (and by chip_smoke.py on the card). Exact equality
-throughout: the words are integers.
+On the CPU `dit_cols`, `dit_cols_first` and `dif_cols` run their plain
+versions; the JAX side runs K3 and K4 in Pallas interpret mode, or the
+jitted plain LDE. The tables the DIT kernels multiply by are held here
+too, applied as the kernels apply them. The CUDA kernels are held against
+the plain versions by the `cuda`-marked tests (and by chip_smoke.py on the
+card). Exact equality throughout: the words are integers.
 """
+
+import ctypes
+import pathlib
+import subprocess
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,7 +25,8 @@ from tapstark.commit import BcManager as JBcManager
 from tapstark.commit import TapTreeMmcs as JTapTreeMmcs
 from tapstark.field import F as JF
 from tapstark.field.constants import P
-from tapstark.field.device import np_to_mont
+from tapstark.field.device import fp_mul as j_fp_mul
+from tapstark.field.device import np_from_mont, np_to_mont
 from tapstark.fri import FriConfig as JFriConfig
 from tapstark.fri import TwoAdicFriPcs as JTwoAdicFriPcs
 from tapstark.poly import pallas_ntt as jp
@@ -31,11 +37,13 @@ from tapstark_torch.airs import FibonacciAir, generate_fibonacci_trace
 from tapstark_torch.challenger import BfChallenger
 from tapstark_torch.field import F
 from tapstark_torch.field.constants import MULT_GENERATOR
+from tapstark_torch.field.device import fp_const, fp_mul
 from tapstark_torch.interop import mont_np_from_tensor, pcs_from_reference, tensor_from_mont_np
-from tapstark_torch.poly import cols_ntt, cuda_ntt
+from tapstark_torch.poly import cols_ntt, cuda_ntt, dit_tables
 from tapstark_torch.poly.ntt import coset_lde_batch, coset_lde_batch_auto
 from tapstark_torch.stark import prove, verify
 from tapstark_torch.stark.serde import proof_from_bytes, proof_to_bytes
+from tapstark_torch.utils import bitrev_indices
 
 SHIFT = MULT_GENERATOR
 CPU = torch.device("cpu")
@@ -86,20 +94,180 @@ def test_cols_match_pallas_interpret(log_r, b, inverse):
 
 @pytest.mark.parametrize("log_n", [5, 6])
 def test_fourstep_transforms_match_pallas_interpret(log_n):
-    """`ntt_cols_fourstep` both ways, `intt_to_bitrev` and
-    `ntt_from_bitrev` against their `*_pallas` twins."""
+    """`ntt_cols_fourstep` both ways against `ntt_pallas`; the blocks
+    route's halves against `intt_to_bitrev_pallas` (with the 1/n the route
+    folds into its scale table) and `ntt_from_bitrev_pallas`
+    (`dit_cols_first` with one block and no shift, then `dit_cols`)."""
     x = _mont(20 + log_n, 1 << log_n, 3)
     xt, xj = tensor_from_mont_np(x), jnp.asarray(x)
     for inverse in (False, True):
         _same(cols_ntt.ntt_cols_fourstep(xt, inverse), jp.ntt_pallas(xj, inverse))
-    _same(cols_ntt.intt_to_bitrev(xt), jp.intt_to_bitrev_pallas(xj))
-    _same(cols_ntt.ntt_from_bitrev(xt), jp.ntt_from_bitrev_pallas(xj))
+    n_inv = fp_const(pow(1 << log_n, P - 2, P))
+    _same(fp_mul(cols_ntt.intt_to_bitrev_unscaled(xt), n_inv), jp.intt_to_bitrev_pallas(xj))
+    b = cols_ntt.dit_cols_first(xt, 0, 1)
+    _same(cols_ntt.dit_cols(b, cols_ntt.split(log_n)[1], False).reshape(1 << log_n, 3), jp.ntt_from_bitrev_pallas(xj))
 
 
-def test_blocks_lde_matches_pallas_blocks_interpret():
-    x = _mont(30, 1 << 5, 2)
-    want = jp.coset_lde_batch_pallas_blocks(jnp.asarray(x), 2, SHIFT)
-    _same(cols_ntt.coset_lde_blocks(tensor_from_mont_np(x), 2, SHIFT), want)
+@pytest.mark.parametrize("log_n,cases", [(4, [(2, 1), (4, 2)]), (5, [(2, 2), (4, 1)]), (7, [(2, 1), (4, 2)])])
+def test_blocks_lde_matches_pallas_blocks_interpret(log_n, cases):
+    """`coset_lde_blocks` (`dit_cols_first`, then `dit_cols`, for the
+    forward half) against K3/K4's route, widths 2 and 4, blowups 2 and 4;
+    odd log_n splits R = 2C."""
+    for w, log_blowup in cases:
+        x = _mont(30 + log_n + w, 1 << log_n, w)
+        want = jp.coset_lde_batch_pallas_blocks(jnp.asarray(x), log_blowup, SHIFT)
+        _same(cols_ntt.coset_lde_blocks(tensor_from_mont_np(x), log_blowup, SHIFT), want)
+
+
+def test_first_member_plain_matches_unfused_jax_composition():
+    """`dit_cols_first` (its plain version on the CPU) against the forward
+    half's glue as the reference runs it: block scales, transpose, K3 in
+    interpret mode, outer twiddle, transpose; with and without 1/n, at an
+    odd and an even log_n."""
+    for log_n, w, log_blowup in [(5, 2, 2), (8, 4, 1)]:
+        x = _mont(70 + log_n, 1 << log_n, w)
+        log_r, log_c = jp._split(log_n)
+        r, c, width = 1 << log_r, 1 << log_c, w << log_blowup
+        scales = jnp.asarray(jp._block_scales(log_n, log_blowup, SHIFT % P))
+        scaled = j_fp_mul(jnp.asarray(x)[:, None, :], scales.T[:, :, None])
+        m = jnp.swapaxes(scaled.reshape(c, r, width), 0, 1).reshape(r, c * width)
+        a = jp._ntt_cols_pallas(m, log_r, inverse=False)
+        tw = jnp.asarray(jp._outer_twiddle_brv_cols(log_r, log_c, False))
+        want = jnp.swapaxes(j_fp_mul(a.reshape(r, c, width), tw[:, :, None]), 0, 1).reshape(c, r * width)
+        xt = tensor_from_mont_np(x)
+        _same(cols_ntt.dit_cols_first(xt, log_blowup, SHIFT), want)
+        n_inv = int(np_to_mont(np.array([pow(1 << log_n, P - 2, P)], np.uint32))[0])
+        _same(cols_ntt.dit_cols_first(xt, log_blowup, SHIFT, n_inv=True), j_fp_mul(want, jnp.uint32(n_inv)))
+
+
+def _emulate_first_member(x, log_r, log_c, log_blowup, n_inv):
+    """`dit_first_kernel`'s arithmetic on the host, from the tables it is
+    given: x (n, w) Montgomery in bitrev_n order scaled by s1[rb, p1], the
+    R-point DIT (`dit_cols_plain`), then times s2[rb, p2] and the outer
+    twiddle hi[e >> h]·lo[e mod 2^h], e = k1·brv_C(p2) mod n; (C, R·blow·w)
+    out."""
+    t = dit_tables.first_member_tables(log_r, log_c, log_blowup, SHIFT, n_inv)
+    pair = t["s1"].astype(np.uint64)
+    np.testing.assert_array_equal(pair[..., 1], (pair[..., 0] << np.uint64(32)) // np.uint64(P))
+    n, w = x.shape
+    r, c, width = 1 << log_r, 1 << log_c, w << log_blowup
+    s1, s2 = pair[..., 0], np_from_mont(t["s2"]).astype(np.uint64)
+    v = np_from_mont(x).astype(np.uint64).reshape(c, r, 1, w) * s1.T[None, :, :, None] % P  # [p2, p1, rb, c]
+    m = np_to_mont(v.astype(np.uint32).transpose(1, 0, 2, 3).reshape(r, c * width))
+    a = np_from_mont(mont_np_from_tensor(cols_ntt.dit_cols_plain(tensor_from_mont_np(m), log_r, False)))
+    e = (np.arange(r, dtype=np.uint64)[:, None] * bitrev_indices(log_c).astype(np.uint64)[None, :]) % np.uint64(n)
+    h = np.uint64(t["h"])
+    hi, lo = np_from_mont(t["hi"]).astype(np.uint64), np_from_mont(t["lo"]).astype(np.uint64)
+    tw = hi[e >> h] * lo[e & ((np.uint64(1) << h) - np.uint64(1))] % P
+    out = a.astype(np.uint64).reshape(r, c, 1 << log_blowup, w) * tw[:, :, None, None] % P
+    out = out * s2.T[None, :, :, None] % P
+    return np_to_mont(out.astype(np.uint32).transpose(1, 0, 2, 3).reshape(c, r * width))
+
+
+def test_kernel_tables_reproduce_both_forward_first_members():
+    """The DIT kernels' tables, applied as the kernels apply them: the stage
+    pairs are the Shoup table's entries stage after stage; the first-member
+    tables give `dit_cols_first` (blocks route, with 1/n) and, at
+    `forward_split` and with the second member, `lde_forward` (K2)."""
+    for log_r in (1, 3, 6):
+        packed = cols_ntt.packed_twiddles_shoup(log_r, True)
+        want = np.concatenate([packed[:, s - 1, : 1 << (s - 1)].T for s in range(1, log_r + 1)])
+        np.testing.assert_array_equal(dit_tables.dit_stage_pairs(log_r, True), want)
+    for log_n, w, log_blowup in [(4, 2, 2), (7, 3, 1), (9, 4, 2)]:
+        x = _mont(80 + log_n, 1 << log_n, w)
+        log_r, log_c = cols_ntt.split(log_n)
+        want = cols_ntt.dit_cols_first(tensor_from_mont_np(x), log_blowup, SHIFT, n_inv=True)
+        _same(want, _emulate_first_member(x, log_r, log_c, log_blowup, True))
+    for log_n, w, log_blowup in [(5, 2, 2), (13, 2, 2), (14, 3, 1)]:
+        coeffs = _mont(90 + log_n, w, 1 << log_n)
+        log_r, log_c = cuda_ntt.forward_split(log_n)
+        b = tensor_from_mont_np(_emulate_first_member(coeffs.T.copy(), log_r, log_c, log_blowup, False))
+        got = cols_ntt.dit_cols_plain(b, log_c, False).reshape(-1, w)
+        _same(got, mont_np_from_tensor(cuda_ntt.lde_forward_plain(tensor_from_mont_np(coeffs), log_blowup, SHIFT)))
+
+
+def _host_dit_library(tmp_path):
+    """csrc/dit_cols.cuh built with g++ against tests/cuda_host_shim."""
+    here = pathlib.Path(__file__).parent
+    shim, csrc = here / "cuda_host_shim", here.parent / "tapstark_torch" / "csrc"
+    so = tmp_path / "libdit_host.so"
+    subprocess.run(["g++", "-std=c++20", "-O1", "-fPIC", "-shared", f"-I{shim}", f"-I{csrc}", "-o", str(so),
+                    str(shim / "dit_host.cpp"), "-lpthread"], check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(so))
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.host_dit_cols.argtypes = [ptr, ptr, ptr, i32, i64]
+    lib.host_dit_first.argtypes = [ptr, i64, i64, *[ptr] * 6, *[i32] * 5]
+    return lib
+
+
+def test_dit_kernels_on_a_host_shim_match_plain(tmp_path):
+    """The DIT kernels' own source (`csrc/dit_cols.cuh`), compiled with g++
+    against stand-ins for the CUDA built-ins (a std::thread per CUDA
+    thread, a std::barrier for `__syncthreads`), against the plain
+    versions: the column form both ways (ragged lane counts, one to three
+    passes), the first member with its tables, and `lde_forward`'s pair at
+    its `forward_split` (one launch and two). This holds the kernels' index
+    math and tables here; chip_smoke.py holds them on the card."""
+    lib = _host_dit_library(tmp_path)
+
+    def ptr(a):
+        return a.ctypes.data_as(ctypes.c_void_p)
+
+    def cols(x, log_r, inverse):
+        tw = np.ascontiguousarray(dit_tables.dit_stage_pairs(log_r, inverse))
+        out = np.zeros_like(x)
+        assert lib.host_dit_cols(ptr(x), ptr(out), ptr(tw), log_r, x.shape[1]) == 0
+        return out
+
+    def first(x, x_row, x_col, w, log_r, log_c, log_blowup, n_inv):
+        tw = np.ascontiguousarray(dit_tables.dit_stage_pairs(log_r, False))
+        t = dit_tables.first_member_tables(log_r, log_c, log_blowup, SHIFT, n_inv)
+        s1, s2, hi, lo = (np.ascontiguousarray(t[k]) for k in ("s1", "s2", "hi", "lo"))
+        out = np.zeros((1 << log_c, (w << log_blowup) << log_r), np.uint32)
+        assert lib.host_dit_first(ptr(x), x_row, x_col, ptr(out), ptr(tw), ptr(s1), ptr(s2), ptr(hi), ptr(lo),
+                                  log_r, log_c, t["h"], log_blowup, w) == 0
+        return out
+
+    for log_r, b in [(1, 3), (4, 5), (6, 8), (9, 40), (11, 12)]:
+        x = _mont(100 + log_r, 1 << log_r, b)
+        for inverse in (False, True):
+            _same(cols_ntt.dit_cols_plain(tensor_from_mont_np(x), log_r, inverse), cols(x, log_r, inverse))
+    for log_n, w, log_blowup, n_inv in [(4, 2, 2, True), (7, 3, 1, False), (12, 2, 2, True)]:
+        x = _mont(110 + log_n, 1 << log_n, w)
+        log_r, log_c = cols_ntt.split(log_n)
+        b = first(x, w, 1, w, log_r, log_c, log_blowup, n_inv)
+        _same(cols_ntt.dit_cols_first_plain(tensor_from_mont_np(x), log_blowup, SHIFT, n_inv), b)
+        _same(cols_ntt.dit_cols_plain(tensor_from_mont_np(b), log_c, False), cols(b, log_c, False))
+    for log_n, w, log_blowup in [(3, 2, 2), (12, 2, 2), (13, 3, 1)]:
+        coeffs = _mont(120 + log_n, w, 1 << log_n)
+        log_r, log_c = cuda_ntt.forward_split(log_n)
+        b = first(coeffs, 1, 1 << log_n, w, log_r, log_c, log_blowup, False)
+        got = cols(b, log_c, False) if log_c else b
+        want = cuda_ntt.lde_forward_plain(tensor_from_mont_np(coeffs), log_blowup, SHIFT)
+        _same(want, got.reshape(-1, w))
+
+
+def test_blocks_forward_half_is_the_two_dit_launches(monkeypatch):
+    """No op runs between the forward half's two `dit_cols` calls or after
+    them: the second takes the first's output object, and the route returns
+    a view of the second's."""
+    calls = []
+    first, cols = cols_ntt.dit_cols_first, cols_ntt.dit_cols
+
+    def rec_first(*args, **kw):
+        calls.append(("first", first(*args, **kw)))
+        return calls[-1][1]
+
+    def rec_cols(mat, *args):
+        calls.append(("cols", mat, cols(mat, *args)))
+        return calls[-1][2]
+
+    monkeypatch.setattr(cols_ntt, "dit_cols_first", rec_first)
+    monkeypatch.setattr(cols_ntt, "dit_cols", rec_cols)
+    out = cols_ntt.coset_lde_blocks(tensor_from_mont_np(_mont(33, 1 << 6, 2)), 2, SHIFT)
+    assert [c[0] for c in calls] == ["first", "cols"]
+    assert calls[1][1] is calls[0][1]
+    assert out.data_ptr() == calls[1][2].data_ptr() and out.shape == (1 << 8, 2)
 
 
 @pytest.mark.parametrize("log_n", [3, 5, 7, 9])
@@ -163,17 +331,40 @@ def _cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("log_r,b", [(2, 4), (3, 4), (11, 4096), (12, 3000), (14, 5)])
-def test_cuda_cols_match_plain(log_r, b):
+def test_cuda_cols_match_plain():
+    """Both directions at (log R, B) = (2, 4), (3, 4), (11, 4096), (12,
+    3000), (14, 5), one test, not five cases: see ROADMAP.md on how the
+    suite's item count places the slow pre-port tests in the parallel run."""
     dev = _cuda()
-    x = tensor_from_mont_np(_mont(50 + log_r, 1 << log_r, b), dev)
-    for inverse in (False, True):
-        before = dict(cols_ntt.launches)
-        assert torch.equal(cols_ntt.dit_cols(x, log_r, inverse), cols_ntt.dit_cols_plain(x, log_r, inverse))
-        assert torch.equal(cols_ntt.dif_cols(x, log_r, inverse), cols_ntt.dif_cols_plain(x, log_r, inverse))
-        assert cols_ntt.launches == {k: v + 1 for k, v in before.items()}
+    for log_r, b in [(2, 4), (3, 4), (11, 4096), (12, 3000), (14, 5)]:
+        x = tensor_from_mont_np(_mont(50 + log_r, 1 << log_r, b), dev)
+        for inverse in (False, True):
+            before = dict(cols_ntt.launches)
+            assert torch.equal(cols_ntt.dit_cols(x, log_r, inverse), cols_ntt.dit_cols_plain(x, log_r, inverse))
+            assert torch.equal(cols_ntt.dif_cols(x, log_r, inverse), cols_ntt.dif_cols_plain(x, log_r, inverse))
+            assert cols_ntt.launches == {**before, "dit_cols": before["dit_cols"] + 1,
+                                         "dit_cols.cols": before["dit_cols.cols"] + 1,
+                                         "dif_cols": before["dif_cols"] + 1}
     with pytest.raises(ValueError):
         cols_ntt.dit_cols(torch.zeros((1 << 15, 1), dtype=torch.int32, device=dev), 15, False)
+
+
+@pytest.mark.cuda
+def test_cuda_dit_first_matches_plain():
+    """The first member on the card against its plain version at the 2^22
+    prove's shapes (widths 2 and 4, blowup 4, with 1/n, then the second
+    member over its output) and at an odd log_n of width 3."""
+    dev = _cuda()
+    for log_n, w, log_blowup, n_inv in [(22, 2, 2, True), (22, 4, 2, True), (7, 3, 1, False)]:
+        x = tensor_from_mont_np(_mont(60 + w, 1 << log_n, w), dev)
+        before = dict(cols_ntt.launches)
+        b = cols_ntt.dit_cols_first(x, log_blowup, SHIFT, n_inv)
+        assert torch.equal(b, cols_ntt.dit_cols_first_plain(x, log_blowup, SHIFT, n_inv))
+        assert cols_ntt.launches == {**before, "dit_cols": before["dit_cols"] + 1,
+                                     "dit_cols.first": before["dit_cols.first"] + 1}
+        log_c = cols_ntt.split(log_n)[1]
+        assert torch.equal(cols_ntt.dit_cols(b, log_c, False), cols_ntt.dit_cols_plain(b, log_c, False))
+        del x, b
 
 
 @pytest.mark.cuda
