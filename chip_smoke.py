@@ -4,8 +4,9 @@
 
 Builds the port's CUDA kernels from `tapstark_torch/csrc/`, holds each one
 (and both forms of `dit_cols`: the plain column transform and the first
-member of a forward coset LDE) against its plain PyTorch version on the
-card (exact equality: the words are integers), holds a north-star
+member of a forward coset LDE; and of `dif_cols`: the plain column
+transform and the last member of an inverse transform) against its plain
+PyTorch version on the card (exact equality: the words are integers), holds a north-star
 trace-commit shard, an FRI layer and two
 small trees hashed on the card against the host SHA-NI engine, holds the blocks LDE
 route (2^22 rows) and the limb-matmul LDE (2^20 rows) against the fused
@@ -17,15 +18,16 @@ entry points, with the kernels' launch counts read around each run, and
 holds both proofs to the bytes frozen from the tree before the SHA-256
 kernels' redesign.
 (`chip_study.py` holds the longer measurements: full-size kernel times,
-the two LDE routes at 2^22 and 2^23 rows, the card's busy share, the FRI
-host-tail switch.)
+the two LDE routes at 2^22 and 2^23 rows, the NTT kernels' own device
+time, the card's busy share, the FRI host-tail switch.)
 
 The last line is `{"ok": true, "device": {...}}`; the line before it lists
 the kernels with their launches (counted on the path named in each row),
 errors, times and bounds, at the first prove shape and at every shape
-timed against its bound (`shapes`), `dit_cols`'s two forms (`forms`), and
-the launches of the two DIT kernels that `lde_forward` runs on
-(`kernels`). Any failed phase raises: no result line, non-zero exit.
+timed against its bound (`shapes`), `dit_cols`'s and `dif_cols`'s two
+forms (`forms`), and the launches of the two DIF kernels that
+`lde_inverse` runs on and of the two DIT kernels that `lde_forward` runs
+on (`kernels`). Any failed phase raises: no result line, non-zero exit.
 Without a CUDA device it exits at once. Neither JAX nor the JAX package is
 loaded.
 """
@@ -76,16 +78,21 @@ SHA_TREES = [(28, 5, 1), (3, 13, 2)]
 # column-NTT check shapes (log R, B): the 2^22 prove's (the inverse and
 # forward members of the trace's LDE, width 2, and of the quotient
 # chunk's, width 4), a lane count that is no multiple of the lane tile,
-# the golden padded route's; and each kernel's (log R, B, inverse) at the
-# prove's shapes, trace first (timed against their bounds for the JSON row;
-# the column form heads `dit_cols`'s row)
-COLS_SHAPES = [(11, 4096), (11, 16384), (11, 8192), (11, 32768), (12, 3000), (2, 4), (3, 4)]
+# the golden padded route's, `lde_inverse`'s column form at 2^20 (narrowed
+# tiles); and each kernel's (log R, B, inverse) at the prove's shapes,
+# trace first (timed against their bounds for the JSON row; the column
+# forms head the rows of `dit_cols` and `dif_cols`)
+COLS_SHAPES = [(11, 4096), (11, 16384), (11, 8192), (11, 32768), (12, 3000), (2, 4), (3, 4), (9, 4096)]
 COLS_REPORTED = {"dit_cols": [(11, 16384, False), (11, 32768, False)],
                  "dif_cols": [(11, 4096, True), (11, 8192, True)]}
 # `dit_cols`'s first-member form (log_n, w, log_blowup, with 1/n): the 2^22
 # prove's trace and quotient LDEs (reported, trace first), an odd log_n of
 # width 3
 FIRST_SHAPES = [(22, 2, 2, True), (22, 4, 2, True), (7, 3, 1, False)]
+# `dif_cols`'s last-member form (log_n, w, with 1/n), over the column
+# form's output: the 2^22 prove's trace and quotient LDEs (reported, trace
+# first), an odd log_n of width 3 with 1/n, and 2^23 (odd, R = 2C)
+LAST_SHAPES = [(22, 2, False), (22, 4, False), (7, 3, True), (23, 2, False)]
 # limb-matmul check shapes (log R, B, with twiddle): the 2^20 matmul LDE's
 # first member (128 x 2^13 * 2, twiddle in the epilogue) and without it,
 # a member of 2^6 rows, the padded small member
@@ -93,10 +100,10 @@ MATMUL_SHAPES = [(7, 1 << 14, True), (7, 1 << 14, False), (6, 1000, True), (3, 4
 # the LDE routes held against the fused one (log_n, route), width 2, blowup 4
 LDE_ROUTES = [(22, "blocks"), (20, "limb matmul")]
 KERNELS = [  # name, replaced TPU kernel, source, path whose launches the JSON line reports
-    ("lde_inverse", "tapstark/poly/pallas_ntt.py:480", "tapstark_torch/csrc/coset_lde.cu", "prove 2^20"),  # K1
+    ("lde_inverse", "tapstark/poly/pallas_ntt.py:480", "tapstark_torch/csrc/dif_cols.cuh", "prove 2^20"),  # K1
     ("lde_forward", "tapstark/poly/pallas_ntt.py:492", "tapstark_torch/csrc/dit_cols.cuh", "prove 2^20"),  # K2
     ("dit_cols", "tapstark/poly/pallas_ntt.py:88", "tapstark_torch/csrc/dit_cols.cuh", "prove 2^22"),  # K3
-    ("dif_cols", "tapstark/poly/pallas_ntt.py:219", "tapstark_torch/csrc/ntt_cols.cu", "prove 2^22"),  # K4
+    ("dif_cols", "tapstark/poly/pallas_ntt.py:219", "tapstark_torch/csrc/dif_cols.cuh", "prove 2^22"),  # K4
     ("tapleaf_subtrees", "tapstark/hashes/sha256_device.py:76", "tapstark_torch/csrc/sha256.cu", "prove 2^20"),  # K5
     ("tapbranch_levels", "tapstark/hashes/sha256_device.py:354", "tapstark_torch/csrc/sha256.cu", "prove 2^20"),  # K6
     ("mod_matmul", "tapstark/poly/matmul_ntt.py:165", "tapstark_torch/csrc/matmul_ntt.cu", "matmul lde 2^20"),  # K7
@@ -116,11 +123,10 @@ ALU_OPS_PER_S = 132 * 64 * 1.98e9
 # dense int8 tensor-core rate (H100 SXM data sheet), two ops per MAC
 INT8_TENSOR_OPS_PER_S = 1979e12
 # 32-bit integer instructions per unit of work, the fewest each needs:
-OPS_BUTTERFLY = 15  # K1's: Montgomery product (mul.wide, mul.lo, mul.hi, adds, select) + add + sub
-OPS_MONT_MUL = 8  # a lone Montgomery product (K1's 1/n)
+OPS_MONT_MUL = 8  # a Montgomery product (mul.wide, mul.lo, mul.hi, adds, select)
 OPS_SHOUP_MUL = 3  # w * x - umulhi(ws, x) * p: umulhi and two IMADs, in [0, 2p)
 OPS_REDUCE = 2  # [0, 2p) -> [0, p): a subtract and an unsigned min
-# a lazy Shoup DIT/DIF butterfly (K2, K3, K4): the product, both inputs
+# a lazy Shoup DIT/DIF butterfly (K1-K4): the product, both inputs
 # reduced to [0, p), an add and a subtract (IADD3 with p)
 OPS_SHOUP_BUTTERFLY = OPS_SHOUP_MUL + 2 * OPS_REDUCE + 2
 # SHA-256, by the pipes that can issue each instruction: (ALU only: LOP3
@@ -195,12 +201,13 @@ def levels_bound(r: int, n: int, levels: int, write_first: int) -> tuple[float, 
 
 
 def lde_bounds(log_n: int, w: int, log_blowup: int) -> dict:
-    """K1: n-point Montgomery DIF butterflies and 1/n per element; K2:
-    blow n-point Shoup DIT transforms, each element scaled once (a Shoup
-    product) and made canonical once; each input read once, each output
-    and the twiddle and scale tables read or written once."""
+    """K1: an n-point Shoup DIF transform, each element times 1/n once (a
+    Shoup product) and made canonical once; K2: blow n-point Shoup DIT
+    transforms, each element scaled once and made canonical once; each
+    input read once, each output and the twiddle and scale tables read or
+    written once."""
     n, blow = 1 << log_n, 1 << log_blowup
-    inverse_ops = n // 2 * log_n * OPS_BUTTERFLY + n * OPS_MONT_MUL
+    inverse_ops = n // 2 * log_n * OPS_SHOUP_BUTTERFLY + n * (OPS_SHOUP_MUL + OPS_REDUCE)
     forward_ops = n // 2 * log_n * OPS_SHOUP_BUTTERFLY + n * (OPS_SHOUP_MUL + OPS_REDUCE)
     return {
         "lde_inverse": bound(w * inverse_ops, 4 * (2 * n * w + n // 2)),
@@ -220,6 +227,20 @@ def first_bound(log_n: int, w: int, log_blowup: int) -> tuple[float, str, dict]:
     lanes = c * blow * w
     ops = r // 2 * log_r * lanes * OPS_SHOUP_BUTTERFLY + r * lanes * (2 * OPS_SHOUP_MUL + OPS_REDUCE)
     nbytes = 4 * (r * c * w + r * lanes) + 8 * (r - 1 + blow * (r + c)) + 4 * ((1 << h) + (1 << (log_n - h)))
+    return bound(ops, nbytes)
+
+
+def last_bound(log_n: int, w: int) -> tuple[float, str, dict]:
+    """`dif_cols`'s last member on (R, C·w): the C-point Shoup DIF over w
+    lanes of each of the R rows, one Shoup product per element (the outer
+    twiddle, with 1/n folded in) and a canonical store; the input read
+    once, the (n, w) output written once, and its tables (stage pairs,
+    outer twiddle halves) read once."""
+    log_c = log_n // 2
+    h = (log_n + 1) // 2
+    n, c = 1 << log_n, 1 << log_c
+    ops = n // 2 * log_c * w * OPS_SHOUP_BUTTERFLY + n * w * (OPS_SHOUP_MUL + OPS_REDUCE)
+    nbytes = 4 * 2 * n * w + 8 * (c - 1) + 4 * ((1 << h) + (1 << (log_n - h)))
     return bound(ops, nbytes)
 
 
@@ -246,8 +267,9 @@ def matmul_bound(log_r: int, b: int, with_tw: bool) -> tuple[float, str, dict]:
 
 
 # Kernels that must build without spilling (ptxas's report): the SHA-256
-# kernels and the two DIT kernels, each at its 64-register cap.
-NO_SPILL = ("tapleaf_subtrees", "tapbranch_levels", "dit_cols_kernel", "dit_first_kernel")
+# kernels and the two DIT and two DIF kernels, each at its 64-register cap.
+NO_SPILL = ("tapleaf_subtrees", "tapbranch_levels", "dit_cols_kernel", "dit_first_kernel", "dif_cols_kernel",
+            "dif_last_kernel")
 
 
 def check_ptxas(report: str) -> None:
@@ -389,7 +411,8 @@ def _mont_on(dev, rng, *shape) -> torch.Tensor:
 def check_cols_kernels(dev, stats: dict) -> None:
     """K3/K4's counterparts against their plain versions at every
     COLS_SHAPES entry, in both directions, then `dit_cols`'s first-member
-    form at every FIRST_SHAPES entry."""
+    form at every FIRST_SHAPES entry and `dif_cols`'s last-member form at
+    every LAST_SHAPES entry."""
     from tapstark_torch.field.constants import MULT_GENERATOR as shift
     from tapstark_torch.poly import cols_ntt
 
@@ -400,7 +423,7 @@ def check_cols_kernels(dev, stats: dict) -> None:
             where = f"R=2^{log_r} B={b} inverse={inverse}"
             for name, kernel, plain, form in (
                 ("dit_cols", cols_ntt.dit_cols, cols_ntt.dit_cols_plain, "cols"),
-                ("dif_cols", cols_ntt.dif_cols, cols_ntt.dif_cols_plain, None),
+                ("dif_cols", cols_ntt.dif_cols, cols_ntt.dif_cols_plain, "cols"),
             ):
                 err = compare(name, kernel(x, log_r, inverse), plain(x, log_r, inverse), where)
                 bnd = cols_bound(log_r, b) if (log_r, b, inverse) in COLS_REPORTED[name] else None
@@ -414,6 +437,17 @@ def check_cols_kernels(dev, stats: dict) -> None:
         err = compare("dit_cols", run(), plain(), where)
         bnd = first_bound(log_n, w, log_blowup) if (log_n, w, log_blowup, n_inv) in FIRST_SHAPES[:2] else None
         record(stats, "dit_cols", err, run, plain, where, bnd, "first")
+        del x
+    for log_n, w, n_inv in LAST_SHAPES:
+        log_r, log_c = cols_ntt.split(log_n)
+        a = cols_ntt.dif_cols(_mont_on(dev, rng, 1 << log_r, w << log_c), log_r, True)
+        where = f"last member n=2^{log_n} w={w} 1/n={n_inv}"
+        run = lambda: cols_ntt.dif_cols_last(a, log_c, n_inv)  # noqa: E731
+        plain = lambda: cols_ntt.dif_cols_last_plain(a, log_c, n_inv)  # noqa: E731
+        err = compare("dif_cols", run(), plain(), where)
+        bnd = last_bound(log_n, w) if (log_n, w, n_inv) in LAST_SHAPES[:2] else None
+        record(stats, "dif_cols", err, run, plain, where, bnd, "last")
+        del a
 
 
 def int_mm_dots_ms(x: torch.Tensor, log_r: int, inverse: bool) -> float:
@@ -636,6 +670,12 @@ def run_prove(name: str, dev, cfg: dict, frozen) -> dict:
     return launches
 
 
+def expect_launches(name: str, launches: dict, want: dict) -> None:
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{name}: launches {got}, expected {want}")
+
+
 def kernel_rows(stats: dict, path_launches: dict) -> list:
     """The JSON line's rows, one per KERNELS entry: each headed by its
     first `shapes` entry (`record`), with each form's first entry under
@@ -670,6 +710,8 @@ def kernel_rows(stats: dict, path_launches: dict) -> list:
             row["forms"] = forms
         if name == "lde_forward":  # K2 runs on K3's two DIT kernels: their launches on its path
             row["kernels"] = {k: counts[k] for k in ("dit_cols.first", "dit_cols.cols")}
+        if name == "lde_inverse":  # K1 runs on K4's two DIF kernels: their launches on its path
+            row["kernels"] = {k: counts[k] for k in ("dif_cols.cols", "dif_cols.last")}
         rows.append(row)
     return rows
 
@@ -726,18 +768,25 @@ def main() -> int:
 
     phase("north-star prove on cuda (fused LDE route)")
     launches = path_launches["prove 2^20"] = run_prove("north star", dev, NORTH_STAR, PROOF_2_20)
-    for name in ("lde_inverse", "lde_forward", "dit_cols.first", "dit_cols.cols", "tapleaf_subtrees",
-                 "tapbranch_levels"):
+    for name in ("lde_inverse", "lde_forward", "dit_cols.first", "dit_cols.cols", "dif_cols.cols", "dif_cols.last",
+                 "tapleaf_subtrees", "tapbranch_levels"):
         if launches[name] == 0:
             raise AssertionError(f"{name} was never launched on the north-star path: {launches}")
+    # each of the two LDEs: lde_inverse on the two DIF kernels, lde_forward on the two DIT kernels
+    expect_launches("north star", launches, {"lde_inverse": 2, "dif_cols.cols": 2, "dif_cols.last": 2,
+                                             "lde_forward": 2, "dit_cols.first": 2, "dit_cols.cols": 2})
 
     phase("2^22 prove on cuda (blocks LDE route)")
     launches = path_launches["prove 2^22"] = run_prove("blocks route", dev, BLOCKS_PROVE, PROOF_2_22)
-    for name in ("dit_cols", "dit_cols.first", "dit_cols.cols", "dif_cols", "tapleaf_subtrees", "tapbranch_levels"):
+    for name in ("dit_cols", "dit_cols.first", "dit_cols.cols", "dif_cols", "dif_cols.cols", "dif_cols.last",
+                 "tapleaf_subtrees", "tapbranch_levels"):
         if launches[name] == 0:
             raise AssertionError(f"{name} was never launched on the 2^22 path: {launches}")
     if launches["lde_inverse"] or launches["lde_forward"]:
         raise AssertionError(f"the fused LDE kernels ran on the 2^22 path: {launches}")
+    # each of the two LDEs: the blocks route's four launches
+    expect_launches("2^22", launches, {"dif_cols.cols": 2, "dif_cols.last": 2, "dit_cols.first": 2,
+                                       "dit_cols.cols": 2})
 
     loaded = [
         m for m in sys.modules

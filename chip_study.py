@@ -1,6 +1,6 @@
 """Longer measurements of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_study.py [kernels | sass | routes | suffix | busy | peak | fri_tail ...]
+    python3 chip_study.py [kernels | sass | routes | device | suffix | busy | peak | fri_tail ...]
 
 `chip_smoke.py` checks the port; this script measures what it leaves
 out, for PERF.md (every phase, or the phases named):
@@ -9,6 +9,9 @@ out, for PERF.md (every phase, or the phases named):
   SASS instruction classes of each in the built library (`cuobjdump -sass`);
 - the two coset-LDE routes at 2^22 and 2^23 rows: the fused halves (K1/K2's
   counterparts) against the four-step blocks route (K3/K4's);
+- the NTT kernels' own device time at the prove shapes, under
+  `torch.profiler` (the CUDA-event times of `chip_smoke.py` take in the
+  host's enqueue of each wrapper call);
 - the leaf-suffix builder (plain torch, no kernel of its own) on one
   north-star trace-commit shard;
 - one prove at 2^20 and one at 2^22 rows under `torch.profiler`: the
@@ -57,6 +60,50 @@ def lde_routes(dev) -> None:
         print(f"lde routes 2^{log_n} x 2 blowup 4: fused {times['fused']} ms, blocks {times['blocks']} ms "
               f"(medians of 10, in turns); equal")
         del evals
+
+
+def device_times(dev) -> None:
+    """Each NTT wrapper at the prove shapes, 20 calls under torch.profiler
+    after a warm-up: the device time of each kernel it launches, a launch
+    (mean), and the wrapper's CUDA-event time beside it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tapstark_torch.field.constants import MULT_GENERATOR as shift
+    from tapstark_torch.poly import cols_ntt, cuda_ntt
+
+    rng = np.random.default_rng(10)
+    for w in (2, 4):
+        evals = smoke._mont_on(dev, rng, 1 << 20, w)
+        coeffs = cuda_ntt.lde_inverse(evals)
+        x = smoke._mont_on(dev, rng, 1 << 11, w << 11)
+        a = cols_ntt.dif_cols(x, 11, True)
+        xb = smoke._mont_on(dev, rng, 1 << 22, w)
+        b = cols_ntt.dit_cols_first(xb, 2, shift, True)
+        cases = {
+            f"lde_inverse 2^20 x {w}": lambda: cuda_ntt.lde_inverse(evals),
+            f"lde_forward 2^20 x {w} blowup 4": lambda: cuda_ntt.lde_forward(coeffs, 2, shift),
+            f"dif_cols (R 2^11, B {w << 11})": lambda: cols_ntt.dif_cols(x, 11, True),
+            f"dif_cols last member 2^22 x {w}": lambda: cols_ntt.dif_cols_last(a, 11),
+            f"dit_cols first member 2^22 x {w} blowup 4": lambda: cols_ntt.dit_cols_first(xb, 2, shift, True),
+            f"dit_cols (R 2^11, B {b.shape[1]})": lambda: cols_ntt.dit_cols(b, 11, False),
+        }
+        for name, fn in cases.items():
+            event_ms = smoke.median_ms(fn, 20)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(20):
+                    fn()
+                torch.cuda.synchronize()
+            kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            print(f"{name}: event {event_ms:.4f} ms; device " + ", ".join(
+                f"{_kernel_name(e.key)} {e.self_device_time_total / e.count / 1e3:.4f} ms x{e.count / 20:g}"
+                for e in kernels))
+        del evals, coeffs, x, a, xb, b
+
+
+def _kernel_name(key: str) -> str:
+    """A profiler key's kernel name: `ns::name(args)` -> `name`."""
+    return key.split("(anonymous namespace)::")[-1].split("(")[0]
 
 
 def _words(dev, seed: int):
@@ -282,6 +329,7 @@ PHASES = {  # name: (title, what runs); `python3 chip_study.py [name ...]` runs 
     "kernels": ("kernels at the north star's largest shapes", kernels_full_size),
     "sass": ("SHA-256 kernels' SASS instruction classes", sha_sass),
     "routes": ("coset LDE routes: fused vs blocks", lde_routes),
+    "device": ("NTT kernels' device time at the prove shapes (torch.profiler)", device_times),
     "suffix": ("leaf-suffix builder", suffix_builder),
     "busy": ("card busy share (torch.profiler), 2^20 and 2^22 rows",
              lambda dev: [busy_share(dev, cfg) for cfg in (smoke.NORTH_STAR, smoke.BLOCKS_PROVE)]),

@@ -55,14 +55,14 @@ def headers() -> list[str]:
 _ptr, _i32, _u32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_longlong
 # the C interface: name -> (argument types, result type)
 SIGNATURES = {
-    "tapstark_lde_constants": ([_ptr], None),
-    "tapstark_lde_inverse": ([_ptr, _ptr, _ptr, _i32, _i32, _u32, _ptr], _i32),
+    "tapstark_field_constants": ([_ptr], None),
     "tapstark_sha256_constants": ([_ptr], _i32),
     "tapstark_sha256_tiling": ([_ptr], None),
     "tapstark_tapleaf_subtrees": ([_ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _ptr, _i64, _i64, _ptr], _i32),
     "tapstark_tapbranch_levels": ([_ptr, _i64, _i64, _i32, _i32, _i32, _i32, _ptr, _i64, _i64, _ptr], _i32),
     "tapstark_ntt_cols_max_log_r": ([], _i32),
     "tapstark_dif_cols": ([_ptr, _ptr, _ptr, _i32, _i64, _ptr], _i32),
+    "tapstark_dif_last": ([_ptr, _ptr, _i64, _i64, _ptr, _ptr, _ptr, _u32, _i32, _i32, _i32, _i32, _ptr], _i32),
     "tapstark_dit_cols": ([_ptr, _ptr, _ptr, _i32, _i64, _ptr], _i32),
     "tapstark_dit_first": ([_ptr, _i64, _i64, *[_ptr] * 6, _i32, _i32, _i32, _i32, _i32, _ptr], _i32),
     "tapstark_matmul_constants": ([_ptr], _i32),
@@ -84,7 +84,7 @@ def _check_constants(lib: ctypes.CDLL) -> None:
     from .poly.matmul_ntt import shift_consts_mont
 
     consts = (ctypes.c_uint32 * 2)()
-    lib.tapstark_lde_constants(consts)
+    lib.tapstark_field_constants(consts)
     if (consts[0], consts[1]) != (P, MU):
         raise RuntimeError(f"kernel field constants {tuple(consts)} != (P, MU)")
     sha = (ctypes.c_uint32 * 136)()

@@ -1,5 +1,5 @@
-// BabyBear arithmetic shared by the port's NTT kernels (coset_lde.cu,
-// ntt_cols.cu, dit_cols.cuh, matmul_ntt.cu).
+// BabyBear arithmetic shared by the port's NTT kernels (dit_cols.cuh,
+// dif_cols.cuh and their entry points in ntt_cols.cu, matmul_ntt.cu).
 //
 // Field words are Montgomery form (x * 2^32 mod p) or canonical values in
 // uint32, p = 15*2^27+1, exactly the words of tapstark_torch.field.device.

@@ -1,7 +1,9 @@
 // DIT column transforms over BabyBear on Hopper (sm_90a), shared by
 // dit_cols (the counterpart of K3) and lde_forward (K2's): both run a
 // forward LDE as the four-step pair below, through the entry points of
-// ntt_cols.cu.
+// ntt_cols.cu. Its twin, dif_cols.cuh, runs the inverse half (K4's and
+// K1's counterparts) on the same design, stage for stage in the other
+// order.
 //
 // The pair. An n = R*C point DIT with bit-reversed input p = p2*R + p1
 // (p2 the high digit) and natural output k = k2*R + k1 splits as
@@ -79,7 +81,7 @@ __host__ __device__ inline int dit_pass_stages(int log_r, int k) {
   return log_r / np + (k < log_r % np ? 1 : 0);
 }
 
-// The launch shape of a DIT over 2^log_r rows of `lanes` lanes.
+// The launch shape of a DIT (or DIF) over 2^log_r rows of `lanes` lanes.
 struct DitShape {
   int log_l;     // lanes a block: 2^log_l
   int threads;
@@ -87,10 +89,12 @@ struct DitShape {
   long long lane_blocks;
 };
 
-inline DitShape dit_shape(int log_r, long long lanes) {
+// At most 2^max_log_l lanes a block (dif_cols.cuh narrows the tile to
+// fill the card).
+inline DitShape dit_shape(int log_r, long long lanes, int max_log_l = kDitMaxLogLanes) {
   DitShape d{};
   int cap = kDitTileLog - log_r;
-  if (cap > kDitMaxLogLanes) cap = kDitMaxLogLanes;
+  if (cap > max_log_l) cap = max_log_l;
   while (d.log_l < cap && (1ll << d.log_l) < lanes) ++d.log_l;
   int t = 1 << (log_r + d.log_l - dit_pass_stages(log_r, 0));  // items of the widest pass
   if (t < 32) t = 32;

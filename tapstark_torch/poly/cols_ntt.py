@@ -11,38 +11,43 @@ of the non-fused routes of `tapstark/poly/pallas_ntt.py`).
   (`dit_cols_first_plain` is the composition it replaces).
 - `dif_cols` replaces `_dif_butterfly_kernel` (K4, via `_dif_cols_pallas`):
   natural in, bit-reversed out.
+- `dif_cols_last` is K4 again, as the last member of an inverse transform
+  with the route's glue taken into the kernel: A[p1, (i2, w)] (the column
+  form's output over R) → (n, w) coefficients in bitrev_n order, position
+  p1·C + p2 = the C-point DIF of row p1 times the outer twiddle
+  (`dif_cols_last_plain` is the composition it replaces).
 
-Each wrapper runs its kernel (`tapstark_torch/csrc/ntt_cols.cu`,
-`dit_cols.cuh`) for a CUDA tensor and its plain version for a CPU tensor,
-and raises for anything else. The pipelines around them:
+Each wrapper runs its kernel (entry points in
+`tapstark_torch/csrc/ntt_cols.cu`, kernels in `dit_cols.cuh` and its DIF
+twin `dif_cols.cuh`) for a CUDA tensor and its plain version for a CPU
+tensor, and raises for anything else. The pipelines around them:
 
-- `ntt_cols_fourstep` is `ntt_pallas`; `intt_to_bitrev_unscaled` is
-  `intt_to_bitrev_pallas` without its 1/n, and `dit_cols_first` with one
-  block and no shift, then `dit_cols` over its C rows, is
-  `ntt_from_bitrev_pallas`;
+- `ntt_cols_fourstep` is `ntt_pallas`; `intt_to_bitrev_unscaled` (`dif_cols`
+  over R, then `dif_cols_last`) is `intt_to_bitrev_pallas` without its
+  1/n, and `dit_cols_first` with one block and no shift, then `dit_cols`
+  over its C rows, is `ntt_from_bitrev_pallas`;
 - `coset_lde_padded` is `coset_lde_batch_pallas` (the zero-padded LDE);
 - `coset_lde_blocks` is `coset_lde_batch_pallas_blocks` (`blow` pre-scaled
   n-point NTTs as one NTT of width blow·w), which `coset_lde_batch_auto`
-  takes for every trace outside 2^8–2^21 rows. Its forward half is the two
-  `dit_cols` launches alone (`dit_cols_first`, whose scale table carries
-  the inverse half's 1/n, then `dit_cols` over the C rows of its output,
-  which are already the natural (blow·n, w) rows); the inverse half is
-  `dif_cols` with plain torch between its launches (bit-reversal-free, but
-  the outer twiddle and both transposes are eager), as in the reference.
+  takes for every trace outside 2^8–2^21 rows. It is four launches and
+  nothing between them: the inverse half is `dif_cols` over the natural
+  (R, C·w) view and `dif_cols_last` into (n, w) in bitrev_n order; the
+  forward half is `dit_cols_first` (whose scale table carries the inverse
+  half's 1/n) and `dit_cols` over the C rows of its output, which are
+  already the natural (blow·n, w) rows.
 """
 
 from __future__ import annotations
 
 import functools
 
-import numpy as np
 import torch
 
 from ..field.constants import P, two_adic_generator
 from ..field.device import fp_const, fp_mul
 from ..utils import log2_strict
 from .cuda_ntt import _check_cuda, _raise_on, _stream_ptr, block_scales
-from .dit_tables import dit_stage_pairs_dev, first_member_tables_dev
+from .dit_tables import dit_stage_pairs_dev, first_member_tables_dev, last_member_tables_dev
 from .ntt import _butterfly_stages, bit_reverse_rows, intt, ntt, scale_by_shift_powers
 from .powers import bitrev_indices_dev, geom_powers_mont_dev
 
@@ -52,41 +57,21 @@ from .powers import bitrev_indices_dev, geom_powers_mont_dev
 MAX_LOG_R = 14
 
 # Launches since the last reset. "dit_cols" and "dif_cols": one per call of
-# their wrappers that reached the card ("dit_cols" for both of its forms).
+# their wrappers that reached the card (each for both of its forms).
 # "dit_cols.first" and "dit_cols.cols": one per launch of the two DIT
 # kernels (`dit_first_kernel`, `dit_cols_kernel` of csrc/dit_cols.cuh),
 # whichever wrapper made it: `dit_cols`'s two forms, or
-# `cuda_ntt.lde_forward`, which runs on the same pair.
-launches = {"dit_cols": 0, "dit_cols.first": 0, "dit_cols.cols": 0, "dif_cols": 0}
+# `cuda_ntt.lde_forward`, which runs on the same pair. "dif_cols.cols" and
+# "dif_cols.last" likewise for the two DIF kernels (`dif_cols_kernel`,
+# `dif_last_kernel` of csrc/dif_cols.cuh): `dif_cols`'s two forms, or
+# `cuda_ntt.lde_inverse`.
+launches = {"dit_cols": 0, "dit_cols.first": 0, "dit_cols.cols": 0,
+            "dif_cols": 0, "dif_cols.cols": 0, "dif_cols.last": 0}
 
 
 def reset_launch_counts() -> None:
     for k in launches:
         launches[k] = 0
-
-
-@functools.lru_cache(maxsize=None)
-def packed_twiddles_shoup(log_r: int, inverse: bool) -> np.ndarray:
-    """(2, log_r, R/2) uint32: canonical stage twiddles (stage s holds the
-    first 2^(s-1) powers of the order-2^s root, or of its inverse) and their
-    Shoup companions floor(w·2^32 / p)."""
-    half = max(1 << (log_r - 1), 1)
-    out = np.zeros((2, max(log_r, 1), half), dtype=np.uint32)
-    for s in range(1, log_r + 1):
-        g = two_adic_generator(s)
-        if inverse:
-            g = pow(g, P - 2, P)
-        acc = 1
-        for i in range(1 << (s - 1)):
-            out[0, s - 1, i] = acc
-            out[1, s - 1, i] = (acc << 32) // P
-            acc = acc * g % P
-    return out
-
-
-@functools.lru_cache(maxsize=None)
-def _twiddles_dev(log_r: int, inverse: bool, device) -> torch.Tensor:
-    return torch.from_numpy(packed_twiddles_shoup(log_r, inverse).view(np.int32)).to(device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -142,20 +127,10 @@ def _cols(mat: torch.Tensor, log_r: int, inverse: bool, dif: bool) -> torch.Tens
     if mat.device.type != "cuda":
         raise ValueError(f"{name}: no path for device {mat.device}")
     _check_cuda(mat, name)
-    if not 1 <= log_r <= MAX_LOG_R or mat.shape[1] < 1:
-        raise ValueError(f"{name}: shape {tuple(mat.shape)} unsupported (1 <= log R <= {MAX_LOG_R})")
-    dev = mat.device
+    if not 1 <= log_r <= MAX_LOG_R or mat.shape[1] < 1 or (dif and mat.numel() >= 1 << 32):
+        raise ValueError(f"{name}: shape {tuple(mat.shape)} unsupported (1 <= log R <= {MAX_LOG_R}; DIF: R·B < 2^32)")
     out = torch.empty_like(mat)
-    if dif:
-        from .._build import load_library
-
-        tw = _twiddles_dev(log_r, inverse, dev)
-        with torch.cuda.device(dev):
-            err = load_library().tapstark_dif_cols(mat.data_ptr(), out.data_ptr(), tw.data_ptr(), log_r,
-                                                   mat.shape[1], _stream_ptr(dev))
-        _raise_on(err, name)
-    else:
-        launch_dit_cols(mat, out, log_r, inverse, name)
+    (launch_dif_cols if dif else launch_dit_cols)(mat, out, log_r, inverse, name)
     launches[name] += 1
     return out
 
@@ -172,6 +147,39 @@ def launch_dit_cols(src: torch.Tensor, dst: torch.Tensor, log_r: int, inverse: b
                                                _stream_ptr(dev))
     _raise_on(err, what)
     launches["dit_cols.cols"] += 1
+
+
+def launch_dif_cols(src: torch.Tensor, dst: torch.Tensor, log_r: int, inverse: bool, what: str) -> None:
+    """`dif_cols_kernel` on the card: src (R, B) → dst (as many words),
+    DIF down axis 0, rows natural in, bit-reversed out."""
+    from .._build import load_library
+
+    dev = src.device
+    tw = dit_stage_pairs_dev(log_r, inverse, dev)
+    with torch.cuda.device(dev):
+        err = load_library().tapstark_dif_cols(src.data_ptr(), dst.data_ptr(), tw.data_ptr(), log_r, src.shape[1],
+                                               _stream_ptr(dev))
+    _raise_on(err, what)
+    launches["dif_cols.cols"] += 1
+
+
+def launch_dif_last(a: torch.Tensor, out: torch.Tensor, out_row: int, out_col: int, log_r: int, log_c: int,
+                    w: int, n_inv: bool, what: str) -> None:
+    """`dif_last_kernel` on the card: A (R, C·w), row p1 = (i2, c) → the
+    inverse transform's position p1·C + p2 (bitrev_n order) of column c at
+    out's word (p1·C + p2)·out_row + c·out_col, times 1/n if n_inv."""
+    from .._build import load_library
+
+    dev = a.device
+    tw = dit_stage_pairs_dev(log_c, True, dev)
+    t = last_member_tables_dev(log_r, log_c, n_inv, dev)
+    with torch.cuda.device(dev):
+        err = load_library().tapstark_dif_last(
+            a.data_ptr(), out.data_ptr(), out_row, out_col, tw.data_ptr(), t["hi"].data_ptr(), t["lo"].data_ptr(),
+            t["c0"], log_r, log_c, t["h"], w, _stream_ptr(dev),
+        )
+    _raise_on(err, what)
+    launches["dif_cols.last"] += 1
 
 
 def launch_dit_first(x: torch.Tensor, x_row: int, x_col: int, out: torch.Tensor, log_r: int, log_c: int,
@@ -268,20 +276,54 @@ def ntt_cols_fourstep(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
     return out
 
 
+def dif_cols_last_plain(a: torch.Tensor, log_c: int, n_inv: bool = False) -> torch.Tensor:
+    """The composition `dif_cols_last` replaces: outer twiddle
+    w_n^{-brv_R(p1)·i2} (and 1/n if n_inv), transpose to (C, R·w),
+    `dif_cols_plain` over C, transpose to (n, w), flat p1·C + p2."""
+    r, cw = a.shape
+    log_r = log2_strict(r)
+    c, w = 1 << log_c, cw >> log_c
+    n = r * c
+    t = fp_mul(a.reshape(r, c, w), outer_twiddle_brv_rows(log_r, log_c, True, a.device)[:, :, None])
+    if n_inv:
+        t = fp_mul(t, fp_const(pow(n, P - 2, P)))
+    b = t.transpose(0, 1).reshape(c, r * w)  # B[i2, (p1, w)]
+    y = dif_cols_plain(b, log_c, True)  # Y[p2, (p1, w)]
+    return y.reshape(c, r, w).transpose(0, 1).reshape(n, w)  # flat p1·C + p2
+
+
+def dif_cols_last(a: torch.Tensor, log_c: int, n_inv: bool = False) -> torch.Tensor:
+    """(R, C·w) Montgomery A[p1, (i2, w)], the column form's output over
+    the natural (R, C·w) view of n = R·C evaluations → (n, w): the inverse
+    transform's coefficients in bitrev_n order (times 1/n if n_inv),
+    `dif_cols_last_plain`'s function."""
+    if a.dim() != 2:
+        raise ValueError(f"dif_cols_last: expected (R, C·w), got shape {tuple(a.shape)}")
+    if a.device.type == "cpu":
+        return dif_cols_last_plain(a, log_c, n_inv)
+    if a.device.type != "cuda":
+        raise ValueError(f"dif_cols_last: no path for device {a.device}")
+    _check_cuda(a, "dif_cols_last")
+    r, cw = a.shape
+    log_r = log2_strict(r)
+    w = cw >> log_c
+    if not (log_r <= MAX_LOG_R and 1 <= log_c <= MAX_LOG_R and w >= 1 and w << log_c == cw):
+        raise ValueError(f"dif_cols_last: shape {(r, cw)}, log_c {log_c} unsupported")
+    out = torch.empty((r << log_c, w), dtype=torch.int32, device=a.device)
+    launch_dif_last(a, out, w, 1, log_r, log_c, w, n_inv, "dif_cols_last")
+    launches["dif_cols"] += 1
+    return out
+
+
 def intt_to_bitrev_unscaled(evals: torch.Tensor) -> torch.Tensor:
     """(n, w) natural evaluations → coefficients in bitrev_n order, without
     the 1/n of `intt_to_bitrev_pallas` (the blocks route folds it into the
-    forward half's scale table)."""
+    forward half's scale table): `dif_cols` over the natural (R, C·w) view,
+    then `dif_cols_last`, and nothing between them."""
     n, w = evals.shape
-    log_n = log2_strict(n)
-    log_r, log_c = split(log_n)
-    r, c = 1 << log_r, 1 << log_c
-    dev = evals.device
-    a = dif_cols(evals.reshape(r, c * w).contiguous(), log_r, True)  # A[p1, (i2, w)]
-    a = fp_mul(a.reshape(r, c, w), outer_twiddle_brv_rows(log_r, log_c, True, dev)[:, :, None])
-    b = a.transpose(0, 1).reshape(c, r * w).contiguous()  # B[i2, (p1, w)]
-    y = dif_cols(b, log_c, True)  # Y[p2, (p1, w)]
-    return y.reshape(c, r, w).transpose(0, 1).reshape(n, w)  # flat p1·C + p2
+    log_r, log_c = split(log2_strict(n))
+    a = dif_cols(evals.reshape(1 << log_r, w << log_c).contiguous(), log_r, True)  # A[p1, (i2, w)]
+    return dif_cols_last(a, log_c)  # flat p1·C + p2
 
 
 def coset_lde_padded(evals: torch.Tensor, log_blowup: int, shift: int) -> torch.Tensor:

@@ -1,10 +1,15 @@
-"""The fused coset LDE on the card: `lde_inverse` (its kernel in
-`tapstark_torch/csrc/coset_lde.cu`) and `lde_forward` (on the two DIT
+"""The fused coset LDE on the card: `lde_inverse` (on the two DIF kernels
+of `tapstark_torch/csrc/dif_cols.cuh`) and `lde_forward` (on the two DIT
 kernels of `csrc/dit_cols.cuh`), and their plain versions.
 
 - `lde_inverse` replaces `_fused_intt_kernel` (K1) of
   tapstark/poly/pallas_ntt.py: evaluations (n, w) natural order →
   coefficients (w, n), position p holding coefficient bitrev(p), times 1/n.
+  On the card it is the four-step DIF pair (split by `inverse_split`):
+  the column form over the natural (R, C·w) view, then the last member
+  with 1/n into (w, n), launched through `cols_ntt.launch_dif_cols` and
+  `launch_dif_last`: its launches count under "lde_inverse" here and
+  under those kernels' own keys in `cols_ntt.launches`.
 - `lde_forward` replaces `_fused_fwd_kernel` (K2): coefficients as
   `lde_inverse` leaves them → (n·2^log_blowup, w) natural-order evaluations
   on shift·<w_N>: block rb scales coefficient j by (shift·w_N^rb)^j, runs a
@@ -15,9 +20,9 @@ kernels of `csrc/dit_cols.cuh`), and their plain versions.
   launches count under "lde_forward" here and under those kernels' own
   keys in `cols_ntt.launches`.
 
-Each wrapper runs its kernel for a CUDA tensor and its plain version for a
-CPU tensor, and raises for anything else. The source notes
-(`csrc/coset_lde.cu`, `csrc/dit_cols.cuh`) say what bounds the kernels on
+Each wrapper runs its kernels for a CUDA tensor and its plain version for
+a CPU tensor, and raises for anything else. The source notes
+(`csrc/dif_cols.cuh`, `csrc/dit_cols.cuh`) say what bounds the kernels on
 an H100 and what the design does about it.
 """
 
@@ -29,13 +34,17 @@ import functools
 import torch
 
 from ..field.constants import P, two_adic_generator
-from ..field.device import fp_const
 from ..utils import log2_strict
 from .ntt import bit_reverse_rows, intt, ntt, scale_by_shift_powers
 from .powers import bitrev_indices_dev, geom_powers_mont_dev
 
 # `lde_forward`'s first member keeps 2^11 rows (64 KiB tiles of 8 lanes)
-# and leaves the rest, at most 2^14 rows, to the second.
+# and leaves the rest, at most 2^14 rows, to the second; `lde_inverse`
+# mirrors it (`inverse_split`): its last member keeps 2^11 rows of w lanes
+# (16 KiB at w = 2, one block per row of its 2^9 at 2^20) and its column
+# form takes the rest, whose 64 KiB tiles would be 128 at 2^20 x 2 against
+# 132 SMs: the kernel then narrows them to 16 KiB (csrc/dif_cols.cuh), 512
+# blocks.
 FORWARD_LOG_R = 11
 MAX_FORWARD_LOG_C = 14
 
@@ -46,12 +55,6 @@ launches = {"lde_inverse": 0, "lde_forward": 0}
 def reset_launch_counts() -> None:
     for k in launches:
         launches[k] = 0
-
-
-@functools.lru_cache(maxsize=None)
-def inverse_twiddles(log_n: int, device) -> torch.Tensor:
-    """(n/2,) Montgomery powers w_n^{-e} on `device`."""
-    return geom_powers_mont_dev(pow(two_adic_generator(log_n), P - 2, P), log_n - 1, 1, device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -73,6 +76,13 @@ def forward_split(log_n: int) -> tuple[int, int]:
     launch."""
     log_r = min(log_n, max(FORWARD_LOG_R, log_n - MAX_FORWARD_LOG_C))
     return log_r, log_n - log_r
+
+
+def inverse_split(log_n: int) -> tuple[int, int]:
+    """(log R, log C) of `lde_inverse`'s column form and last member, the
+    mirror of `forward_split`; log R = 0 is one launch (the last member)."""
+    log_c, log_r = forward_split(log_n)
+    return log_r, log_c
 
 
 def _check_cuda(x: torch.Tensor, name: str) -> None:
@@ -112,19 +122,16 @@ def lde_inverse(evals: torch.Tensor) -> torch.Tensor:
     _check_cuda(evals, "lde_inverse")
     n, w = evals.shape
     log_n = log2_strict(n)
-    if not (1 <= log_n <= 27 and 1 <= w <= 65535):
+    if not (1 <= log_n <= 27 and 1 <= w <= 65535 and n * w < 1 << 32):
         raise ValueError(f"lde_inverse: shape {(n, w)} unsupported")
-    from .._build import load_library
+    from .cols_ntt import launch_dif_cols, launch_dif_last
 
-    lib = load_library()
-    tw = inverse_twiddles(log_n, evals.device)
+    log_r, log_c = inverse_split(log_n)
     out = torch.empty((w, n), dtype=torch.int32, device=evals.device)
-    with torch.cuda.device(evals.device):
-        err = lib.tapstark_lde_inverse(
-            evals.data_ptr(), out.data_ptr(), tw.data_ptr(), log_n, w,
-            fp_const(pow(n, P - 2, P)), _stream_ptr(evals.device),
-        )
-    _raise_on(err, "lde_inverse")
+    a = torch.empty((1 << log_r, w << log_c), dtype=torch.int32, device=out.device) if log_r else evals
+    if log_r:
+        launch_dif_cols(evals.view(1 << log_r, w << log_c), a, log_r, True, "lde_inverse")
+    launch_dif_last(a, out, 1, n, log_r, log_c, w, True, "lde_inverse")
     launches["lde_inverse"] += 1
     return out
 

@@ -1,7 +1,7 @@
 // Stand-ins for the CUDA built-ins that tapstark_torch/csrc/dit_cols.cuh
-// uses, so that its kernels compile with g++ and run on the host for the
-// tests: one std::thread per CUDA thread, one block at a time, a
-// std::barrier for __syncthreads (see dit_host.cpp).
+// and dif_cols.cuh use, so that their kernels compile with g++ and run on
+// the host for the tests: one std::thread per CUDA thread, one block at a
+// time, a std::barrier for __syncthreads (see dit_host.cpp).
 #pragma once
 #include <barrier>
 #include <cstddef>

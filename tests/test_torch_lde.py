@@ -102,8 +102,8 @@ def test_lde_entry_points_raise_off_cpu_and_cuda():
 def test_cuda_kernels_match_plain():
     """Both halves at (log_n, w, log_blowup) = (3, 2, 2), (11, 3, 1), (20,
     2, 2), (20, 4, 2) (the north star's trace and quotient shapes), with the
-    launches each counts, its own and the DIT kernels' it runs on; one
-    test, not four cases: see ROADMAP.md on how the suite's item count
+    launches each counts, its own and the DIF or DIT kernels' it runs on;
+    one test, not four cases: see ROADMAP.md on how the suite's item count
     places the slow pre-port tests in the parallel run."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
@@ -117,7 +117,11 @@ def test_cuda_kernels_match_plain():
         assert torch.equal(out, coset_lde_batch(x, log_blowup, SHIFT))
         assert cuda_ntt.launches["lde_inverse"] == before["lde_inverse"] + 1
         assert cuda_ntt.launches["lde_forward"] == before["lde_forward"] + 1
-        # lde_forward runs on the two DIT kernels (one alone up to 2^11 rows)
+        # lde_inverse runs on the two DIF kernels and lde_forward on the two
+        # DIT kernels (the last or the first member alone up to 2^11 rows)
         two = cuda_ntt.forward_split(log_n)[1] > 0
+        assert cuda_ntt.inverse_split(log_n)[0] == cuda_ntt.forward_split(log_n)[1]
         assert cols_ntt.launches == {**before_dit, "dit_cols.first": before_dit["dit_cols.first"] + 1,
-                                     "dit_cols.cols": before_dit["dit_cols.cols"] + two}
+                                     "dit_cols.cols": before_dit["dit_cols.cols"] + two,
+                                     "dif_cols.last": before_dit["dif_cols.last"] + 1,
+                                     "dif_cols.cols": before_dit["dif_cols.cols"] + two}

@@ -2,12 +2,14 @@
 (tapstark_torch.poly.cols_ntt) against the JAX package's Pallas routes
 (tapstark/poly/pallas_ntt.py), word for word.
 
-On the CPU `dit_cols`, `dit_cols_first` and `dif_cols` run their plain
-versions; the JAX side runs K3 and K4 in Pallas interpret mode, or the
-jitted plain LDE. The tables the DIT kernels multiply by are held here
-too, applied as the kernels apply them. The CUDA kernels are held against
-the plain versions by the `cuda`-marked tests (and by chip_smoke.py on the
-card). Exact equality throughout: the words are integers.
+On the CPU `dit_cols`, `dit_cols_first`, `dif_cols` and `dif_cols_last`
+run their plain versions; the JAX side runs K3 and K4 in Pallas interpret
+mode, or the jitted plain LDE. The tables the column kernels multiply by
+are held here too, applied as the kernels apply them, and so are the
+kernels' own sources, built with g++ against stand-ins for the CUDA
+built-ins. The CUDA kernels are held against the plain versions by the
+`cuda`-marked tests (and by chip_smoke.py on the card). Exact equality
+throughout: the words are integers.
 """
 
 import ctypes
@@ -60,15 +62,29 @@ def _same(t, j):
 
 @pytest.mark.parametrize("log_r", [1, 4, 7])
 def test_shoup_twiddle_table_matches_jax(log_r):
+    """The column kernels' stage pairs (both designs, both directions) are
+    the TPU kernels' Shoup table, stage after stage."""
     for inverse in (False, True):
-        np.testing.assert_array_equal(
-            cols_ntt.packed_twiddles_shoup(log_r, inverse), jp._packed_twiddles_shoup(log_r, inverse)
-        )
+        packed = jp._packed_twiddles_shoup(log_r, inverse)
+        want = np.concatenate([packed[:, s - 1, : 1 << (s - 1)].T for s in range(1, log_r + 1)])
+        np.testing.assert_array_equal(dit_tables.dit_stage_pairs(log_r, inverse), want)
 
 
 @pytest.mark.parametrize("log_r,log_c", [(2, 1), (3, 3), (4, 3)])
 def test_outer_twiddles_match_jax(log_r, log_c):
+    """The plain versions' outer twiddles, and the DIF last member's as its
+    kernel forms them from its tables (hi[e >> h]·lo[e mod 2^h], e =
+    brv_R(p1)·i2 mod n), against the JAX package's."""
     assert cols_ntt.split(log_r + log_c) == jp._split(log_r + log_c)
+    t = dit_tables.last_member_tables(log_r, log_c, False)
+    e = bitrev_indices(log_r).astype(np.uint64)[:, None] * np.arange(1 << log_c, dtype=np.uint64)[None, :]
+    e %= np.uint64(1 << (log_r + log_c))
+    hi, lo = np_from_mont(t["hi"]).astype(np.uint64), np_from_mont(t["lo"]).astype(np.uint64)
+    tw = hi[e >> np.uint64(t["h"])] * lo[e & np.uint64((1 << t["h"]) - 1)] % np.uint64(P)
+    want = np.asarray(jp._outer_twiddle_brv_rows(log_r, log_c, True))
+    np.testing.assert_array_equal(np_to_mont(tw.astype(np.uint32)), want)
+    assert t["c0"] == fp_const(1)
+    assert dit_tables.last_member_tables(log_r, log_c, True)["c0"] == fp_const(pow(1 << (log_r + log_c), P - 2, P))
     for inverse in (False, True):
         _same(cols_ntt.outer_twiddle_mont(log_r, log_c, inverse, CPU), jp._outer_twiddle_mont(log_r, log_c, inverse))
         _same(
@@ -96,14 +112,21 @@ def test_cols_match_pallas_interpret(log_r, b, inverse):
 def test_fourstep_transforms_match_pallas_interpret(log_n):
     """`ntt_cols_fourstep` both ways against `ntt_pallas`; the blocks
     route's halves against `intt_to_bitrev_pallas` (with the 1/n the route
-    folds into its scale table) and `ntt_from_bitrev_pallas`
+    folds into its scale table, and the plain last member with its own 1/n
+    after `dif_cols` over R, or alone on the one row of R = 1, as
+    `lde_inverse` runs it at small sizes) and `ntt_from_bitrev_pallas`
     (`dit_cols_first` with one block and no shift, then `dit_cols`)."""
     x = _mont(20 + log_n, 1 << log_n, 3)
     xt, xj = tensor_from_mont_np(x), jnp.asarray(x)
     for inverse in (False, True):
         _same(cols_ntt.ntt_cols_fourstep(xt, inverse), jp.ntt_pallas(xj, inverse))
     n_inv = fp_const(pow(1 << log_n, P - 2, P))
-    _same(fp_mul(cols_ntt.intt_to_bitrev_unscaled(xt), n_inv), jp.intt_to_bitrev_pallas(xj))
+    want = jp.intt_to_bitrev_pallas(xj)
+    _same(fp_mul(cols_ntt.intt_to_bitrev_unscaled(xt), n_inv), want)
+    log_r, log_c = cols_ntt.split(log_n)
+    a = cols_ntt.dif_cols_plain(xt.reshape(1 << log_r, 3 << log_c), log_r, True)
+    _same(cols_ntt.dif_cols_last_plain(a, log_c, n_inv=True), want)
+    _same(cols_ntt.dif_cols_last_plain(xt.reshape(1, 3 << log_n), log_n, n_inv=True), want)
     b = cols_ntt.dit_cols_first(xt, 0, 1)
     _same(cols_ntt.dit_cols(b, cols_ntt.split(log_n)[1], False).reshape(1 << log_n, 3), jp.ntt_from_bitrev_pallas(xj))
 
@@ -165,14 +188,11 @@ def _emulate_first_member(x, log_r, log_c, log_blowup, n_inv):
 
 
 def test_kernel_tables_reproduce_both_forward_first_members():
-    """The DIT kernels' tables, applied as the kernels apply them: the stage
-    pairs are the Shoup table's entries stage after stage; the first-member
-    tables give `dit_cols_first` (blocks route, with 1/n) and, at
-    `forward_split` and with the second member, `lde_forward` (K2)."""
-    for log_r in (1, 3, 6):
-        packed = cols_ntt.packed_twiddles_shoup(log_r, True)
-        want = np.concatenate([packed[:, s - 1, : 1 << (s - 1)].T for s in range(1, log_r + 1)])
-        np.testing.assert_array_equal(dit_tables.dit_stage_pairs(log_r, True), want)
+    """The DIT kernels' tables, applied as the kernels apply them (the
+    stage pairs are held in `test_shoup_twiddle_table_matches_jax`): the
+    first-member tables give `dit_cols_first` (blocks route, with 1/n)
+    and, at `forward_split` and with the second member, `lde_forward`
+    (K2)."""
     for log_n, w, log_blowup in [(4, 2, 2), (7, 3, 1), (9, 4, 2)]:
         x = _mont(80 + log_n, 1 << log_n, w)
         log_r, log_c = cols_ntt.split(log_n)
@@ -187,7 +207,8 @@ def test_kernel_tables_reproduce_both_forward_first_members():
 
 
 def _host_dit_library(tmp_path):
-    """csrc/dit_cols.cuh built with g++ against tests/cuda_host_shim."""
+    """csrc/dit_cols.cuh and dif_cols.cuh built with g++ against
+    tests/cuda_host_shim."""
     here = pathlib.Path(__file__).parent
     shim, csrc = here / "cuda_host_shim", here.parent / "tapstark_torch" / "csrc"
     so = tmp_path / "libdit_host.so"
@@ -197,17 +218,24 @@ def _host_dit_library(tmp_path):
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.host_dit_cols.argtypes = [ptr, ptr, ptr, i32, i64]
     lib.host_dit_first.argtypes = [ptr, i64, i64, *[ptr] * 6, *[i32] * 5]
+    lib.host_dif_cols.argtypes = [ptr, ptr, ptr, i32, i64, i32]
+    lib.host_dif_last.argtypes = [ptr, ptr, i64, i64, ptr, ptr, ptr, ctypes.c_uint32, *[i32] * 4]
     return lib
 
 
 def test_dit_kernels_on_a_host_shim_match_plain(tmp_path):
-    """The DIT kernels' own source (`csrc/dit_cols.cuh`), compiled with g++
-    against stand-ins for the CUDA built-ins (a std::thread per CUDA
-    thread, a std::barrier for `__syncthreads`), against the plain
-    versions: the column form both ways (ragged lane counts, one to three
-    passes), the first member with its tables, and `lde_forward`'s pair at
-    its `forward_split` (one launch and two). This holds the kernels' index
-    math and tables here; chip_smoke.py holds them on the card."""
+    """The column kernels' own sources (`csrc/dit_cols.cuh` and its DIF
+    twin `dif_cols.cuh`), compiled with g++ against stand-ins for the CUDA
+    built-ins (a std::thread per CUDA thread, a std::barrier for
+    `__syncthreads`), against the plain versions. DIT: the column form
+    both ways (ragged lane counts, one to three passes), the first member
+    with its tables, and `lde_forward`'s pair at its `forward_split` (one
+    launch and two). DIF: the column form both ways (the same, and at
+    lane counts whose full tiles would not fill a card of 132 SMs), the
+    last member in both layouts with and without 1/n, and `lde_inverse`'s
+    pair at its `inverse_split` (one launch and two). This holds the
+    kernels' index math and tables here; chip_smoke.py holds them on the
+    card."""
     lib = _host_dit_library(tmp_path)
 
     def ptr(a):
@@ -246,28 +274,64 @@ def test_dit_kernels_on_a_host_shim_match_plain(tmp_path):
         want = cuda_ntt.lde_forward_plain(tensor_from_mont_np(coeffs), log_blowup, SHIFT)
         _same(want, got.reshape(-1, w))
 
+    def dif(x, log_r, inverse, sms=132):
+        tw = np.ascontiguousarray(dit_tables.dit_stage_pairs(log_r, inverse))
+        out = np.zeros_like(x)
+        assert lib.host_dif_cols(ptr(x), ptr(out), ptr(tw), log_r, x.shape[1], sms) == 0
+        return out
+
+    def last(a, out, out_row, out_col, w, log_r, log_c, n_inv):
+        tw = np.ascontiguousarray(dit_tables.dit_stage_pairs(log_c, True))
+        t = dit_tables.last_member_tables(log_r, log_c, n_inv)
+        hi, lo = np.ascontiguousarray(t["hi"]), np.ascontiguousarray(t["lo"])
+        assert lib.host_dif_last(ptr(a), ptr(out), out_row, out_col, ptr(tw), ptr(hi), ptr(lo), t["c0"],
+                                 log_r, log_c, t["h"], w) == 0
+        return out
+
+    for log_r, b in [(1, 3), (4, 5), (6, 8), (9, 40), (11, 12), (5, 1000)]:
+        x = _mont(130 + log_r, 1 << log_r, b)
+        for inverse in (False, True):
+            _same(cols_ntt.dif_cols_plain(tensor_from_mont_np(x), log_r, inverse), dif(x, log_r, inverse))
+    for log_n, w, n_inv in [(4, 2, True), (7, 3, False), (12, 2, True), (13, 5, False)]:
+        x = _mont(140 + log_n, 1 << log_n, w)
+        log_r, log_c = cols_ntt.split(log_n)
+        a = dif(x.reshape(1 << log_r, w << log_c), log_r, True)
+        _same(cols_ntt.dif_cols_plain(tensor_from_mont_np(x.reshape(1 << log_r, -1)), log_r, True), a)
+        want = cols_ntt.dif_cols_last_plain(tensor_from_mont_np(a), log_c, n_inv)
+        _same(want, last(a, np.zeros((1 << log_n, w), np.uint32), w, 1, w, log_r, log_c, n_inv))
+        _same(want.T, last(a, np.zeros((w, 1 << log_n), np.uint32), 1, 1 << log_n, w, log_r, log_c, n_inv))
+    for log_n, w in [(3, 2), (11, 3), (12, 2), (13, 4)]:
+        x = _mont(150 + log_n, 1 << log_n, w)
+        log_r, log_c = cuda_ntt.inverse_split(log_n)
+        a = dif(x.reshape(1 << log_r, w << log_c), log_r, True) if log_r else x
+        got = last(a, np.zeros((w, 1 << log_n), np.uint32), 1, 1 << log_n, w, log_r, log_c, True)
+        _same(cuda_ntt.lde_inverse_plain(tensor_from_mont_np(x)), got)
+
 
 def test_blocks_forward_half_is_the_two_dit_launches(monkeypatch):
-    """No op runs between the forward half's two `dit_cols` calls or after
-    them: the second takes the first's output object, and the route returns
-    a view of the second's."""
+    """`coset_lde_blocks` is four launches and no op between or after them:
+    `dif_cols` over the evaluations' natural (R, C·w) view, the DIF last
+    member, then the forward half's two `dit_cols` calls; each takes the
+    previous one's output object, and the route returns a view of the
+    last one's."""
     calls = []
-    first, cols = cols_ntt.dit_cols_first, cols_ntt.dit_cols
 
-    def rec_first(*args, **kw):
-        calls.append(("first", first(*args, **kw)))
-        return calls[-1][1]
+    def recorder(name, fn):
+        def rec(x, *args, **kw):
+            calls.append((name, x, fn(x, *args, **kw)))
+            return calls[-1][2]
 
-    def rec_cols(mat, *args):
-        calls.append(("cols", mat, cols(mat, *args)))
-        return calls[-1][2]
+        return rec
 
-    monkeypatch.setattr(cols_ntt, "dit_cols_first", rec_first)
-    monkeypatch.setattr(cols_ntt, "dit_cols", rec_cols)
-    out = cols_ntt.coset_lde_blocks(tensor_from_mont_np(_mont(33, 1 << 6, 2)), 2, SHIFT)
-    assert [c[0] for c in calls] == ["first", "cols"]
-    assert calls[1][1] is calls[0][1]
-    assert out.data_ptr() == calls[1][2].data_ptr() and out.shape == (1 << 8, 2)
+    for name in ("dif_cols", "dif_cols_last", "dit_cols_first", "dit_cols"):
+        monkeypatch.setattr(cols_ntt, name, recorder(name, getattr(cols_ntt, name)))
+    evals = tensor_from_mont_np(_mont(33, 1 << 6, 2))
+    out = cols_ntt.coset_lde_blocks(evals, 2, SHIFT)
+    assert [c[0] for c in calls] == ["dif_cols", "dif_cols_last", "dit_cols_first", "dit_cols"]
+    assert calls[0][1].data_ptr() == evals.data_ptr() and calls[0][1].shape == (1 << 3, 2 << 3)
+    for prev, cur in zip(calls, calls[1:]):
+        assert cur[1] is prev[2]
+    assert out.data_ptr() == calls[-1][2].data_ptr() and out.shape == (1 << 8, 2)
 
 
 @pytest.mark.parametrize("log_n", [3, 5, 7, 9])
@@ -333,10 +397,13 @@ def _cuda():
 @pytest.mark.cuda
 def test_cuda_cols_match_plain():
     """Both directions at (log R, B) = (2, 4), (3, 4), (11, 4096), (12,
-    3000), (14, 5), one test, not five cases: see ROADMAP.md on how the
-    suite's item count places the slow pre-port tests in the parallel run."""
+    3000), (14, 5), (9, 4096) (narrowed tiles), then the DIF last member
+    over the column form's output at the 2^22 prove's shapes (widths 2 and
+    4) and at an odd log_n of width 3, with and without 1/n; one test, not
+    many cases: see ROADMAP.md on how the suite's item count places the
+    slow pre-port tests in the parallel run."""
     dev = _cuda()
-    for log_r, b in [(2, 4), (3, 4), (11, 4096), (12, 3000), (14, 5)]:
+    for log_r, b in [(2, 4), (3, 4), (11, 4096), (12, 3000), (14, 5), (9, 4096)]:
         x = tensor_from_mont_np(_mont(50 + log_r, 1 << log_r, b), dev)
         for inverse in (False, True):
             before = dict(cols_ntt.launches)
@@ -344,7 +411,18 @@ def test_cuda_cols_match_plain():
             assert torch.equal(cols_ntt.dif_cols(x, log_r, inverse), cols_ntt.dif_cols_plain(x, log_r, inverse))
             assert cols_ntt.launches == {**before, "dit_cols": before["dit_cols"] + 1,
                                          "dit_cols.cols": before["dit_cols.cols"] + 1,
-                                         "dif_cols": before["dif_cols"] + 1}
+                                         "dif_cols": before["dif_cols"] + 1,
+                                         "dif_cols.cols": before["dif_cols.cols"] + 1}
+    for log_n, w, n_inv in [(22, 2, False), (22, 4, True), (7, 3, True)]:
+        log_r, log_c = cols_ntt.split(log_n)
+        x = tensor_from_mont_np(_mont(70 + w, 1 << log_n, w), dev)
+        a = cols_ntt.dif_cols(x.view(1 << log_r, w << log_c), log_r, True)
+        before = dict(cols_ntt.launches)
+        got = cols_ntt.dif_cols_last(a, log_c, n_inv)
+        assert torch.equal(got, cols_ntt.dif_cols_last_plain(a, log_c, n_inv))
+        assert cols_ntt.launches == {**before, "dif_cols": before["dif_cols"] + 1,
+                                     "dif_cols.last": before["dif_cols.last"] + 1}
+        del x, a, got
     with pytest.raises(ValueError):
         cols_ntt.dit_cols(torch.zeros((1 << 15, 1), dtype=torch.int32, device=dev), 15, False)
 
