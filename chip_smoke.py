@@ -4,9 +4,11 @@
 
 Builds the port's CUDA kernels from `tapstark_torch/csrc/`, holds each one
 (and both forms of `dit_cols`: the plain column transform and the first
-member of a forward coset LDE; and of `dif_cols`: the plain column
-transform and the last member of an inverse transform) against its plain
-PyTorch version on the card (exact equality: the words are integers), holds a north-star
+member of a forward coset LDE; of `dif_cols`: the plain column transform
+and the last member of an inverse transform; and of `mod_matmul`: the
+natural output and the one written for the next recursion level, also on
+extreme inputs) against its plain PyTorch version on the card (exact
+equality: the words are integers), holds a north-star
 trace-commit shard, an FRI layer and two
 small trees hashed on the card against the host SHA-NI engine, holds the blocks LDE
 route (2^22 rows) and the limb-matmul LDE (2^20 rows) against the fused
@@ -93,10 +95,19 @@ FIRST_SHAPES = [(22, 2, 2, True), (22, 4, 2, True), (7, 3, 1, False)]
 # form's output: the 2^22 prove's trace and quotient LDEs (reported, trace
 # first), an odd log_n of width 3 with 1/n, and 2^23 (odd, R = 2C)
 LAST_SHAPES = [(22, 2, False), (22, 4, False), (7, 3, True), (23, 2, False)]
-# limb-matmul check shapes (log R, B, with twiddle): the 2^20 matmul LDE's
-# first member (128 x 2^13 * 2, twiddle in the epilogue) and without it,
-# a member of 2^6 rows, the padded small member
-MATMUL_SHAPES = [(7, 1 << 14, True), (7, 1 << 14, False), (6, 1000, True), (3, 4, False)]
+# limb-matmul check shapes (log R, B, with twiddle, width of the next-level
+# form): the 2^20 matmul LDE's first inverse member (128 x 2^13 * 2,
+# twiddle in the epilogue) and without it, a member of 2^6 rows, the
+# padded small member, and the LDE's first forward member (128 x 2^13 * 8);
+# each checked in both output forms. The inverse and forward members with
+# twiddle are timed against their bounds in the next-level form, the one
+# `ntt_matmul` launches (the first heads the JSON row).
+MATMUL_SHAPES = [(7, 1 << 14, True, 2), (7, 1 << 14, False, 2), (6, 1000, True, 8), (3, 4, False, 4),
+                 (7, 1 << 16, True, 8)]
+MATMUL_TIMED = [(7, 1 << 14, True), (7, 1 << 16, True)]
+# extreme canonical inputs (every word p - 2 = 0x77FFFFFF, or p - 1), at
+# (R, B, width): the largest byte limbs the kernel's buckets must hold
+MATMUL_EXTREMES = ((0x77FFFFFF, 0x78000000), (7, 4096, 2))
 # the LDE routes held against the fused one (log_n, route), width 2, blowup 4
 LDE_ROUTES = [(22, "blocks"), (20, "limb matmul")]
 KERNELS = [  # name, replaced TPU kernel, source, path whose launches the JSON line reports
@@ -141,8 +152,13 @@ SHA_ROUND, SHA_SCHEDULE = np.array([4, 6, 0, 4]), np.array([2, 4, 2, 2])
 SHA_FEED_FORWARD, SHA_SORT = np.array([0, 0, 0, 8]), np.array([24, 0, 0, 0])
 SHA_COMPRESS = 64 * SHA_ROUND + 48 * SHA_SCHEDULE + SHA_FEED_FORWARD
 SHA_TAPBRANCH = SHA_SORT + SHA_COMPRESS + 64 * SHA_ROUND + SHA_FEED_FORWARD
-OPS_LIMB_SPLIT = 10  # five shifts and five masks per input word of the limb matmul
-OPS_RECOMBINE = 9 * (OPS_MONT_MUL + 3)  # nine bucket products and modular adds per output
+# the limb matmul (K7): four byte limbs of a word of x are a 4 x 4 byte
+# transpose, 8 byte permutes for 4 words; an output folds its 7 buckets by
+# 7 wide multiply-adds into a 64-bit sum, then one Montgomery reduction
+# (mul.lo, mul.hi, a compare and an add for the carry, a subtract and a
+# select)
+OPS_BYTE_LIMBS = 2
+OPS_ONE_REDUCTION = 7 + 6
 
 
 def bound(ops: float, nbytes: float) -> tuple[float, str, dict]:
@@ -253,23 +269,27 @@ def cols_bound(log_r: int, b: int) -> tuple[float, str, dict]:
 
 
 def matmul_bound(log_r: int, b: int, with_tw: bool) -> tuple[float, str, dict]:
-    """`mod_matmul` on (R, B): the larger of 25·R²·B int8 MACs at the dense
-    int8 tensor rate, the int32 limb split and epilogue at the issue rate,
-    and the bytes (x, the twiddles, the output, W's limb planes)."""
+    """`mod_matmul` on (R, B): the larger of 16·R²·B u8 MACs (four byte
+    limbs of W and of x) at the dense int8 tensor rate, the int32 byte
+    split and one-reduction epilogue (and the twiddle's Montgomery product)
+    at the issue rate, and the bytes (x, the twiddles, the output, W's 4
+    byte planes)."""
     r = 1 << log_r
+    ops = OPS_BYTE_LIMBS + OPS_ONE_REDUCTION + (OPS_MONT_MUL if with_tw else 0)
     times = {
-        "bytes": 1e3 * (4 * r * b * (3 if with_tw else 2) + 5 * r * r) / MEM_BYTES_PER_S,
-        "int8 tensor": 1e3 * 2 * 25 * r * r * b / INT8_TENSOR_OPS_PER_S,
-        "int32": 1e3 * r * b * (OPS_LIMB_SPLIT + OPS_RECOMBINE + (OPS_MONT_MUL if with_tw else 0)) / INT32_OPS_PER_S,
+        "bytes": 1e3 * (4 * r * b * (3 if with_tw else 2) + 4 * r * r) / MEM_BYTES_PER_S,
+        "int8 tensor": 1e3 * 2 * 16 * r * r * b / INT8_TENSOR_OPS_PER_S,
+        "int32": 1e3 * r * b * ops / INT32_OPS_PER_S,
     }
     by = max(times, key=times.get)
     return times[by], "bytes" if by == "bytes" else "operations", times
 
 
 # Kernels that must build without spilling (ptxas's report): the SHA-256
-# kernels and the two DIT and two DIF kernels, each at its 64-register cap.
+# kernels and the two DIT and two DIF kernels, each at its 64-register cap,
+# and the limb-matmul kernel at each padded R.
 NO_SPILL = ("tapleaf_subtrees", "tapbranch_levels", "dit_cols_kernel", "dit_first_kernel", "dif_cols_kernel",
-            "dif_last_kernel")
+            "dif_last_kernel", "mod_matmul_kernel")
 
 
 def check_ptxas(report: str) -> None:
@@ -462,27 +482,43 @@ def int_mm_dots_ms(x: torch.Tensor, log_r: int, inverse: bool) -> float:
 
 def check_matmul_kernel(dev, stats: dict) -> None:
     """K7's counterpart against its plain version at every MATMUL_SHAPES
-    entry, in both directions; the first shape's times go to the JSON line,
-    with the 25 limb dots through `torch._int_mm` as the library time
-    (inverse first: the JSON row's)."""
+    entry and on the extreme inputs, in both directions and both output
+    forms (natural, and written for the next level); the MATMUL_TIMED
+    shapes' next-level form is timed against its bound (inverse first: the
+    JSON row's), with the 25 limb dots through `torch._int_mm` as the
+    library time at the first."""
     from tapstark_torch.field.constants import P
     from tapstark_torch.poly import matmul_ntt as mm
 
     rng = np.random.default_rng(6)
-    for i, (log_r, b, with_tw) in enumerate(MATMUL_SHAPES):
+    for log_r, b, with_tw, width in MATMUL_SHAPES:
         x = torch.from_numpy(rng.integers(0, P, (1 << log_r, b)).astype(np.int32)).to(dev)  # canonical
         tw = _mont_on(dev, rng, 1 << log_r, b) if with_tw else None
+        timed = (log_r, b, with_tw) in MATMUL_TIMED
         for inverse in (True, False):
-            where = f"R=2^{log_r} B={b} twiddle={with_tw} inverse={inverse}"
-            err = compare("mod_matmul", mm.mod_matmul(x, log_r, inverse, tw),
-                          mm.mod_matmul_plain(x, log_r, inverse, tw), where)
-            record(stats, "mod_matmul", err, lambda: mm.mod_matmul(x, log_r, inverse, tw),
-                   lambda: mm.mod_matmul_plain(x, log_r, inverse, tw), where,
-                   matmul_bound(log_r, b, with_tw) if i == 0 else None)
-            if i == 0 and inverse:
+            for form, wd in (("natural", None), ("next level", width)):
+                where = f"R=2^{log_r} B={b} twiddle={with_tw} inverse={inverse} form={form} w={wd}"
+                run = lambda: mm.mod_matmul(x, log_r, inverse, tw, wd)  # noqa: E731
+                plain = lambda: mm.mod_matmul_plain(x, log_r, inverse, tw, wd)  # noqa: E731
+                err = compare("mod_matmul", run(), plain(), where)
+                record(stats, "mod_matmul", err, run, plain, where,
+                       matmul_bound(log_r, b, with_tw) if timed and wd else None)
+            if (log_r, b, with_tw) == MATMUL_TIMED[0] and inverse:
                 lib_ms = int_mm_dots_ms(x, log_r, inverse)
                 stats["mod_matmul"]["library_ms"] = lib_ms
-                print(f"library: the 25 limb dots alone through torch._int_mm at {where}: {lib_ms:.4f} ms")
+                print(f"library: the 25 limb dots alone through torch._int_mm at R=2^{log_r} B={b}: {lib_ms:.4f} ms")
+    values, (log_r, b, width) = MATMUL_EXTREMES
+    tw = _mont_on(dev, rng, 1 << log_r, b)
+    for value in values:
+        x = torch.full((1 << log_r, b), value, dtype=torch.int32, device=dev)
+        for inverse in (True, False):
+            for t in (None, tw):
+                for wd in (None, width):
+                    where = f"extreme x={value:#x} R=2^{log_r} B={b} twiddle={t is not None} inverse={inverse} w={wd}"
+                    compare("mod_matmul", mm.mod_matmul(x, log_r, inverse, t, wd),
+                            mm.mod_matmul_plain(x, log_r, inverse, t, wd), where)
+        print(f"mod_matmul extreme x={value:#x}: equal in both directions and forms, with and without twiddle",
+              flush=True)
 
 
 def check_sha_kernels(dev, stats: dict) -> None:
@@ -633,8 +669,9 @@ def check_lde_routes(dev) -> dict:
             line += f"; {ms:.3f} ms, fused route {fused_ms:.3f} ms"
         print(f"{line}; launches {counts[route]}", flush=True)
         del evals, want, got
-    if counts["limb matmul"]["mod_matmul"] == 0:
-        raise AssertionError("the limb-matmul LDE never launched its kernel")
+    # three members each way at 2^20 (2^7 * 2^7 * 2^6), one launch a member
+    if counts["limb matmul"]["mod_matmul"] != 6:
+        raise AssertionError(f"the limb-matmul LDE made {counts['limb matmul']['mod_matmul']} K7 launches, not 6")
     return counts["limb matmul"]
 
 

@@ -9,9 +9,10 @@ out, for PERF.md (every phase, or the phases named):
   SASS instruction classes of each in the built library (`cuobjdump -sass`);
 - the two coset-LDE routes at 2^22 and 2^23 rows: the fused halves (K1/K2's
   counterparts) against the four-step blocks route (K3/K4's);
-- the NTT kernels' own device time at the prove shapes, under
-  `torch.profiler` (the CUDA-event times of `chip_smoke.py` take in the
-  host's enqueue of each wrapper call);
+- the NTT kernels' own device time at the prove shapes, and the limb-matmul
+  kernel's (K7) at the 2^20 matmul LDE's member shapes with the LDE itself,
+  under `torch.profiler` (the CUDA-event times of `chip_smoke.py` take in
+  the host's enqueue of each wrapper call);
 - the leaf-suffix builder (plain torch, no kernel of its own) on one
   north-star trace-commit shard;
 - one prove at 2^20 and one at 2^22 rows under `torch.profiler`: the
@@ -62,15 +63,37 @@ def lde_routes(dev) -> None:
         del evals
 
 
-def device_times(dev) -> None:
-    """Each NTT wrapper at the prove shapes, 20 calls under torch.profiler
-    after a warm-up: the device time of each kernel it launches, a launch
-    (mean), and the wrapper's CUDA-event time beside it."""
+def _device_line(name: str, fn, calls: int = 20, only: str = "") -> None:
+    """fn's CUDA-event time (median of `calls`) and, over `calls` calls under
+    torch.profiler after a warm-up, the device time of each kernel it
+    launches (mean a launch, launches a call), those whose name holds
+    `only`, and all kernels' total a call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    event_ms = smoke.median_ms(fn, calls)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in kernels) / calls / 1e3
+    print(f"{name}: event {event_ms:.4f} ms; device total {total:.4f} ms a call; " + ", ".join(
+        f"{_kernel_name(e.key)} {e.self_device_time_total / e.count / 1e3:.4f} ms x{e.count / calls:g}"
+        for e in kernels if only in e.key), flush=True)
+
+
+def device_times(dev) -> None:
+    """Each NTT wrapper at the prove shapes, and `mod_matmul` (natural form,
+    with twiddle) at the 2^20 matmul LDE's inverse and forward member
+    shapes (R 128, B 2^14 and 2^16) and the LDE itself (2^20 x 2, blowup
+    4; its K7 launches listed): 20 calls each under torch.profiler after a
+    warm-up (the LDE 5), the device time of each kernel, a launch (mean),
+    and the wrapper's CUDA-event time beside it."""
     from tapstark_torch.field.constants import MULT_GENERATOR as shift
+    from tapstark_torch.field.constants import P
     from tapstark_torch.poly import cols_ntt, cuda_ntt
+    from tapstark_torch.poly import matmul_ntt as mm
 
     rng = np.random.default_rng(10)
     for w in (2, 4):
@@ -89,16 +112,15 @@ def device_times(dev) -> None:
             f"dit_cols (R 2^11, B {b.shape[1]})": lambda: cols_ntt.dit_cols(b, 11, False),
         }
         for name, fn in cases.items():
-            event_ms = smoke.median_ms(fn, 20)
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(20):
-                    fn()
-                torch.cuda.synchronize()
-            kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-            print(f"{name}: event {event_ms:.4f} ms; device " + ", ".join(
-                f"{_kernel_name(e.key)} {e.self_device_time_total / e.count / 1e3:.4f} ms x{e.count / 20:g}"
-                for e in kernels))
+            _device_line(name, fn)
         del evals, coeffs, x, a, xb, b
+    for log_b in (14, 16):
+        x = torch.from_numpy(rng.integers(0, P, (128, 1 << log_b)).astype(np.int32)).to(dev)  # canonical
+        tw = smoke._mont_on(dev, rng, 128, 1 << log_b)
+        _device_line(f"mod_matmul (R 128, B 2^{log_b}) twiddle, inverse", lambda: mm.mod_matmul(x, 7, True, tw))
+    evals = smoke._mont_on(dev, rng, 1 << 20, 2)
+    _device_line("limb-matmul LDE 2^20 x 2 blowup 4", lambda: mm.coset_lde_batch_matmul(evals, 2, shift), 5,
+                 "matmul")
 
 
 def _kernel_name(key: str) -> str:
@@ -329,7 +351,7 @@ PHASES = {  # name: (title, what runs); `python3 chip_study.py [name ...]` runs 
     "kernels": ("kernels at the north star's largest shapes", kernels_full_size),
     "sass": ("SHA-256 kernels' SASS instruction classes", sha_sass),
     "routes": ("coset LDE routes: fused vs blocks", lde_routes),
-    "device": ("NTT kernels' device time at the prove shapes (torch.profiler)", device_times),
+    "device": ("NTT and limb-matmul kernels' device time at the path shapes (torch.profiler)", device_times),
     "suffix": ("leaf-suffix builder", suffix_builder),
     "busy": ("card busy share (torch.profiler), 2^20 and 2^22 rows",
              lambda dev: [busy_share(dev, cfg) for cfg in (smoke.NORTH_STAR, smoke.BLOCKS_PROVE)]),

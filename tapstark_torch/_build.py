@@ -66,7 +66,7 @@ SIGNATURES = {
     "tapstark_dit_cols": ([_ptr, _ptr, _ptr, _i32, _i64, _ptr], _i32),
     "tapstark_dit_first": ([_ptr, _i64, _i64, *[_ptr] * 6, _i32, _i32, _i32, _i32, _i32, _ptr], _i32),
     "tapstark_matmul_constants": ([_ptr], _i32),
-    "tapstark_limb_matmul": ([_ptr, _ptr, _ptr, _ptr, _i32, _i64, _ptr], _i32),
+    "tapstark_mod_matmul": ([_ptr, _ptr, _ptr, _i64, _ptr, _i32, _i64, _i32, _ptr], _i32),
 }
 
 
@@ -81,7 +81,7 @@ def _check_constants(lib: ctypes.CDLL) -> None:
     from .hashes import sha256_device as sd
     from .hashes.sha256_device import _K, _tapbranch_block2_round_consts, tag_midstate_words
     from .poly.cols_ntt import MAX_LOG_R
-    from .poly.matmul_ntt import shift_consts_mont
+    from .poly.matmul_ntt import byte_shift_consts_mont
 
     consts = (ctypes.c_uint32 * 2)()
     lib.tapstark_field_constants(consts)
@@ -98,11 +98,11 @@ def _check_constants(lib: ctypes.CDLL) -> None:
     lib.tapstark_sha256_tiling(tiling)
     if (tiling[1], tiling[3]) != (sd.LEAF_LEVELS, sd.MAX_TILE_LEVELS) or sd.BRANCH_LEVELS > tiling[3]:
         raise RuntimeError(f"SHA-256 kernel tiling {list(tiling)} differs from sha256_device's")
-    mm = (ctypes.c_uint32 * 11)()
+    mm = (ctypes.c_uint32 * 9)()
     err = lib.tapstark_matmul_constants(mm)
     if err != 0:
         raise RuntimeError(f"reading the limb-matmul kernel constants: CUDA error {err}")
-    if list(mm) != [P, MU, *(int(c) for c in shift_consts_mont())]:
+    if list(mm) != [P, MU, *(int(c) for c in byte_shift_consts_mont())]:
         raise RuntimeError(f"limb-matmul kernel constants {list(mm)} differ from the host's")
     if lib.tapstark_ntt_cols_max_log_r() != MAX_LOG_R:
         raise RuntimeError("column-NTT kernel's largest log R differs from cols_ntt.MAX_LOG_R")

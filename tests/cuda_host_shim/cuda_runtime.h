@@ -1,7 +1,8 @@
-// Stand-ins for the CUDA built-ins that tapstark_torch/csrc/dit_cols.cuh
-// and dif_cols.cuh use, so that their kernels compile with g++ and run on
-// the host for the tests: one std::thread per CUDA thread, one block at a
-// time, a std::barrier for __syncthreads (see dit_host.cpp).
+// Stand-ins for the CUDA built-ins that tapstark_torch/csrc/dit_cols.cuh,
+// dif_cols.cuh and matmul_ntt.cuh use, so that their kernels and helpers
+// compile with g++ and run on the host for the tests: one std::thread per
+// CUDA thread, one block at a time, a std::barrier for __syncthreads (see
+// dit_host.cpp); matmul_host.cpp runs the limb-matmul kernel's data flow.
 #pragma once
 #include <barrier>
 #include <cstddef>
@@ -22,6 +23,13 @@ extern std::barrier<>* host_block_barrier;
 inline void __syncthreads() { host_block_barrier->arrive_and_wait(); }
 inline uint32_t __umulhi(uint32_t a, uint32_t b) {
   return static_cast<uint32_t>((static_cast<uint64_t>(a) * b) >> 32);
+}
+// Byte n of the result is byte (s >> 4n) & 7 of the 8 bytes y:x.
+inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) {
+  const uint64_t v = (static_cast<uint64_t>(y) << 32) | x;
+  uint32_t r = 0;
+  for (int n = 0; n < 4; ++n) r |= static_cast<uint32_t>((v >> (8 * ((s >> (4 * n)) & 7))) & 0xff) << (8 * n);
+  return r;
 }
 inline uint32_t __brev(uint32_t x) {
   uint32_t r = 0;
