@@ -18,7 +18,12 @@ checks its proof bytes, then proves and verifies Fibonacci at 2^20 rows
 route), blowup 4, 28 queries and 8 PoW bits, through `tapstark_torch`'s
 entry points, with the kernels' launch counts read around each run, and
 holds both proofs to the bytes frozen from the tree before the SHA-256
-kernels' redesign.
+kernels' redesign. It emits the golden proof's Bitcoin-Script verifier
+and holds its report to numbers frozen from the JAX package, and proves
+the repo's widest verifier row (RecursionAir, 2^18 rows x 163 columns,
+blowup 16, 16 queries, 8 PoW bits, a final polynomial of degree < 2^5)
+through `standard_config`, verifies it and emits and executes its script
+verifier, holding the proof and the report to the JAX package's.
 (`chip_study.py` holds the longer measurements: full-size kernel times,
 the two LDE routes at 2^22 and 2^23 rows, the NTT kernels' own device
 time, the card's busy share, the FRI host-tail switch.)
@@ -60,12 +65,42 @@ GOLDEN_POW_WITNESS = 198
 PROOF_2_20 = ("dd928dd5817e0f7843a90cdbdce3be9990182c238d87dbf21d197809eafb00e6", 4831029, 547)
 PROOF_2_22 = ("0ee2cad76352f0e86c973d5fcbf5c57f0220ee7be411b36766e0dd36aea66844", 5316053, 96)
 
+# The script-verifier reports of the golden proof and of the wide row's,
+# frozen from the JAX package's run of the same configurations on a CPU
+# (`python tools/freeze_port_references.py golden wide`; the report digest
+# is `report_digest` below): segment count and the SHA-256 of the sorted
+# (name, bytes) pairs, total script bytes, distinct u32 values and the
+# SHA-256 of their sorted list, challenger compressions.
+GOLDEN_REPORT = {
+    "segments": 22,
+    "segments_sha256": "3e667bbb75ebe912204c516a49dfe610c7307e4c6a4fbfc9a6794673ddd47161",
+    "total_script_bytes": 5451534,
+    "distinct_u32_count": 325,
+    "u32_sha256": "78ee6337b2808d2a6929bdd8e0330a70f3f31bfb6aaf3469e2c50888f8f7f478",
+    "challenger_compressions": 9,
+}
+# the wide row (SCRIPT_SIZES.md, "Wide-table"): RecursionAir from
+# generate_recursion_trace(2^18), proof (sha256, bytes, witness) and report
+WIDE_ROW = dict(log_n=18, log_blowup=4, num_queries=16, pow_bits=8, log_final_poly_len=5)
+WIDE_PROOF = ("56a64cd1c8a28e9ad6e32c94ab251d078beb0966dcb35404b1cbd40cb21a9848", 4194873, 81)
+WIDE_REPORT = {
+    "segments": 85,
+    "segments_sha256": "7e9c7cd90f3dee384c26566f61de93d2460bf6fac620ac31b6c2e598ba3c66ec",
+    "total_script_bytes": 56501576,
+    "distinct_u32_count": 5025,
+    "u32_sha256": "1576b0c51af478634bf6292b8f5f6699df6017b11c24122671e4eda942b6c7c3",
+    "challenger_compressions": 26,
+}
+
 NORTH_STAR = dict(log_n=20, log_blowup=2, num_queries=28, pow_bits=8)
 # the next batch size up (bench_prover.py 22:2:28): above the fused LDE
 # range, so both LDEs take the blocks route (K3/K4's counterparts)
 BLOCKS_PROVE = dict(log_n=22, log_blowup=2, num_queries=28, pow_bits=8)
-# (log_n, width, log_blowup): the path's shapes, the golden size, an odd log_n
-LDE_SHAPES = [(20, 2, 2), (20, 4, 2), (3, 2, 2), (11, 3, 2)]
+# (log_n, width, log_blowup): the north star's trace and quotient shapes,
+# the golden size, an odd log_n, the wide row's trace and quotient shapes
+LDE_SHAPES = [(20, 2, 2), (20, 4, 2), (3, 2, 2), (11, 3, 2), (18, 163, 4), (18, 4, 4)]
+# the shapes timed against their bounds (the first heads the JSON row)
+LDE_TIMED = [(20, 2, 2), (20, 4, 2), (18, 163, 4), (18, 4, 4)]
 # SHA-256 check shapes: one-step lanes (a power of two and a count that is
 # a multiple of no block size); the leaf form (repetitions, leaves) with
 # 1 suffix block (trace and quotient commits) and 2 (the FRI layers),
@@ -76,6 +111,12 @@ SHA_LANES = [1 << 12, 4099]
 SHA_LEAF = (28, 1 << 16)
 SHA_LEAF_BLOCKS = [1, 2]
 SHA_LEVELS_IN = (28, 1 << 16)
+# the wide row's trace shards (163 columns in 5 shards of 32-33 values):
+# 16 repetitions, 4 suffix blocks per leaf; the leaf form over 2^16 of the
+# 2^22 leaves, and TapBranch levels 4 -> 8 over the 2^18 nodes a shard's
+# leaf launch writes
+SHA_WIDE_LEAF = (16, 1 << 16, 4)
+SHA_WIDE_LEVELS_IN = (16, 1 << 18)
 SHA_TREES = [(28, 5, 1), (3, 13, 2)]
 # column-NTT check shapes (log R, B): the 2^22 prove's (the inverse and
 # forward members of the trace's LDE, width 2, and of the quotient
@@ -331,13 +372,16 @@ def make_config(num_queries: int, log_blowup: int, pow_bits: int, device):
     return TwoAdicFriPcs(TapTreeMmcs(BcManager(), num_queries, ext=False), fri, device)
 
 
-def prove_fibonacci(log_n: int, log_blowup: int, num_queries: int, pow_bits: int, device):
+def prove_fibonacci(log_n: int, log_blowup: int, num_queries: int, pow_bits: int, device, emit: bool = False):
     """Prove and verify Fibonacci through the port (trace generation is not
-    timed); returns (proof bytes, witness, prove seconds, verify seconds)."""
+    timed), and with `emit` emit and execute its script verifier; returns
+    {"data": proof bytes, "witness", "prove_s", "verify_s", "report"
+    (None without `emit`), "emit_s"}."""
     from tapstark_torch.airs import FibonacciAir, generate_fibonacci_trace
     from tapstark_torch.challenger import BfChallenger
     from tapstark_torch.field import F
     from tapstark_torch.stark import prove, verify
+    from tapstark_torch.stark.script_verifier import generate_script_verifier
     from tapstark_torch.stark.serde import proof_from_bytes, proof_to_bytes
 
     pcs = make_config(num_queries, log_blowup, pow_bits, device)
@@ -349,7 +393,24 @@ def prove_fibonacci(log_n: int, log_blowup: int, num_queries: int, pow_bits: int
     data = proof_to_bytes(proof)
     verify(pcs, FibonacciAir(), BfChallenger(), proof_from_bytes(data), pis)
     t2 = time.perf_counter()
-    return data, proof.opening_proof.pow_witness, t1 - t0, t2 - t1
+    report = generate_script_verifier(pcs, FibonacciAir(), BfChallenger(), proof, pis) if emit else None
+    t3 = time.perf_counter()
+    return {"data": data, "witness": proof.opening_proof.pow_witness, "prove_s": t1 - t0,
+            "verify_s": t2 - t1, "report": report, "emit_s": t3 - t2}
+
+
+def report_digest(report) -> dict:
+    """The numbers of a ScriptVerifierReport that GOLDEN_REPORT and
+    WIDE_REPORT freeze."""
+    seg = report.segment_script_bytes
+    return {
+        "segments": len(seg),
+        "segments_sha256": hashlib.sha256(json.dumps(sorted(seg.items())).encode()).hexdigest(),
+        "total_script_bytes": report.total_script_bytes,
+        "distinct_u32_count": report.distinct_u32_count,
+        "u32_sha256": hashlib.sha256(json.dumps(sorted(report.u32_values)).encode()).hexdigest(),
+        "challenger_compressions": report.challenger_compressions,
+    }
 
 
 def median_ms(fn, reps: int) -> float:
@@ -409,8 +470,7 @@ def check_lde_kernels(dev, stats: dict) -> None:
         evals = torch.from_numpy(np_to_mont(canon).view(np.int32)).to(dev)
         coeffs = cuda_ntt.lde_inverse(evals)
         where = f"log_n={log_n} w={w} log_blowup={log_blowup}"
-        # the north star's trace and quotient shapes (the first two) are reported
-        bounds = lde_bounds(log_n, w, log_blowup) if (log_n, w, log_blowup) in LDE_SHAPES[:2] else {}
+        bounds = lde_bounds(log_n, w, log_blowup) if (log_n, w, log_blowup) in LDE_TIMED else {}
         err = compare("lde_inverse", coeffs, cuda_ntt.lde_inverse_plain(evals), where)
         record(stats, "lde_inverse", err, lambda: cuda_ntt.lde_inverse(evals),
                lambda: cuda_ntt.lde_inverse_plain(evals), where, bounds.get("lde_inverse"))
@@ -419,6 +479,7 @@ def check_lde_kernels(dev, stats: dict) -> None:
         record(stats, "lde_forward", err, lambda: cuda_ntt.lde_forward(coeffs, log_blowup, shift),
                lambda: cuda_ntt.lde_forward_plain(coeffs, log_blowup, shift), where,
                bounds.get("lde_forward"))
+        del evals, coeffs, got
 
 
 def _mont_on(dev, rng, *shape) -> torch.Tensor:
@@ -576,6 +637,22 @@ def check_sha_kernels(dev, stats: dict) -> None:
                lambda: sd.tapbranch_levels_plain(level, k, write_first), where,
                levels_bound(r, n, k, write_first))
 
+    r, n, nb = SHA_WIDE_LEAF
+    mids, suffix, rem = words(8, r), words(16 * nb, n), words(16 * nb, r)
+    where = f"wide shard leaf form R={r} N={n} nb={nb} levels={levels}"
+    err = compare("tapleaf_subtrees", sd.tapleaf_subtrees(mids, suffix, rem, levels),
+                  sd.tapleaf_subtrees_plain(mids, suffix, rem, levels), where)
+    record(stats, "tapleaf_subtrees", err, lambda: sd.tapleaf_subtrees(mids, suffix, rem, levels),
+           lambda: sd.tapleaf_subtrees_plain(mids, suffix, rem, levels), where, leaf_bound(r, n, nb, levels))
+    r, n = SHA_WIDE_LEVELS_IN
+    level = words(8, r, n)
+    where = f"wide shard levels R={r} n={n} levels={k} write_first={k}"
+    err = compare("tapbranch_levels", sd.tapbranch_levels(level, k, k),
+                  sd.tapbranch_levels_plain(level, k, k), where)
+    record(stats, "tapbranch_levels", err, lambda: sd.tapbranch_levels(level, k, k),
+           lambda: sd.tapbranch_levels_plain(level, k, k), where, levels_bound(r, n, k, k))
+    del mids, suffix, rem, level
+
     rng = np.random.default_rng(9)
     for r, depth, nb in SHA_TREES:
         suffix = words(16 * nb, 1 << depth)
@@ -675,10 +752,10 @@ def check_lde_routes(dev) -> dict:
     return counts["limb matmul"]
 
 
-def run_prove(name: str, dev, cfg: dict, frozen) -> dict:
-    """One prove and verify with spans on and every launch count reset just
-    before it; prints the run, holds the proof to `frozen` (sha256, bytes,
-    witness) and returns the counts read just after."""
+def run_counted(dev, fn):
+    """fn() with spans on, and the peak device memory and every launch
+    count reset just before it; prints the spans, the launches and the
+    peak, and returns (fn's result, the counts read just after)."""
     from tapstark_torch.hashes import sha256_device
     from tapstark_torch.poly import cols_ntt, cuda_ntt
     from tapstark_torch.poly import matmul_ntt as mm
@@ -690,20 +767,80 @@ def run_prove(name: str, dev, cfg: dict, frozen) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     for module in modules:
         module.reset_launch_counts()
-    data, witness, t_prove, t_verify = prove_fibonacci(device=dev, **cfg)
+    result = fn()
     launches = {k: v for module in modules for k, v in module.launches.items()}
     profiling.enable(False)
-    print(
-        f"{name}: fibonacci 2^{cfg['log_n']} rows: prove {t_prove:.3f} s, verify {t_verify:.3f} s "
-        f"(accepted), proof {len(data)} bytes sha256 {hashlib.sha256(data).hexdigest()} witness {witness}"
-    )
     for span, r in profiling.report().items():
         print(f"phase {span}: {r['total_s']:.3f} s over {r['calls']} call(s)")
     print(f"launches {launches}")
     print(f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB", flush=True)
+    return result, launches
+
+
+def run_prove(name: str, dev, cfg: dict, frozen) -> dict:
+    """One prove and verify through `run_counted`; prints the run, holds
+    the proof to `frozen` (sha256, bytes, witness) and returns the counts."""
+    run, launches = run_counted(dev, lambda: prove_fibonacci(device=dev, **cfg))
+    data, witness = run["data"], run["witness"]
+    print(
+        f"{name}: fibonacci 2^{cfg['log_n']} rows: prove {run['prove_s']:.3f} s, verify {run['verify_s']:.3f} s "
+        f"(accepted), proof {len(data)} bytes sha256 {hashlib.sha256(data).hexdigest()} witness {witness}",
+        flush=True,
+    )
     got = (hashlib.sha256(data).hexdigest(), len(data), witness)
     if got != frozen:
         raise AssertionError(f"{name}: proof {got} differs from the frozen {frozen}")
+    return launches
+
+
+def run_wide_row(dev) -> dict:
+    """The wide row (WIDE_ROW) through `standard_config` on the card and
+    `run_counted`: prove, verify, emit and execute the script verifier;
+    prints the times and the report, holds the proof to WIDE_PROOF and the
+    report to WIDE_REPORT, and returns the counts."""
+    from tapstark_torch.airs import RecursionAir, generate_recursion_trace
+    from tapstark_torch.field import F
+    from tapstark_torch.stark import prove, verify
+    from tapstark_torch.stark.config import standard_config
+    from tapstark_torch.stark.script_verifier import generate_script_verifier
+    from tapstark_torch.stark.serde import proof_from_bytes, proof_to_bytes
+
+    cfg = WIDE_ROW
+    config = standard_config(cfg["log_blowup"], cfg["num_queries"], cfg["pow_bits"],
+                             log_final_poly_len=cfg["log_final_poly_len"])
+    trace, pis = generate_recursion_trace(1 << cfg["log_n"])
+    pis = [F(x) for x in pis]
+    air = RecursionAir()
+
+    def drive():
+        t0 = time.perf_counter()
+        proof = prove(config.pcs, air, config.challenger(), trace, pis)
+        t1 = time.perf_counter()
+        data = proof_to_bytes(proof)
+        verify(config.pcs, air, config.challenger(), proof_from_bytes(data), pis)
+        t2 = time.perf_counter()
+        report = generate_script_verifier(config.pcs, air, config.challenger(), proof, pis)
+        return proof, data, report, (t1 - t0, t2 - t1, time.perf_counter() - t2)
+
+    (proof, data, report, (t_prove, t_verify, t_emit)), launches = run_counted(dev, drive)
+    witness = proof.opening_proof.pow_witness
+    print(
+        f"wide row: RecursionAir 2^{cfg['log_n']} x {air.width()}, blowup 2^{cfg['log_blowup']}, "
+        f"{cfg['num_queries']} queries, final poly 2^{cfg['log_final_poly_len']}: prove {t_prove:.3f} s, "
+        f"verify {t_verify:.3f} s (accepted), emit and execute {t_emit:.3f} s; proof {len(data)} bytes "
+        f"sha256 {hashlib.sha256(data).hexdigest()} witness {witness}"
+    )
+    digest = report_digest(report)
+    print(f"report {json.dumps(digest)}")
+    seg = report.segment_script_bytes
+    print(f"segments {len(seg)}: " + ", ".join(f"{k} {v}" for k, v in seg.items() if "query_index" not in k)
+          + f"; fri-pcs-verify {sum(v for k, v in seg.items() if 'query_index' in k)} bytes in "
+          f"{sum('query_index' in k for k in seg)} segments", flush=True)
+    got = (hashlib.sha256(data).hexdigest(), len(data), witness)
+    if got != WIDE_PROOF:
+        raise AssertionError(f"wide row: proof {got} differs from the frozen {WIDE_PROOF}")
+    if digest != WIDE_REPORT:
+        raise AssertionError(f"wide row: report {digest} differs from the frozen {WIDE_REPORT}")
     return launches
 
 
@@ -796,12 +933,18 @@ def main() -> int:
     phase("lde routes: blocks 2^22 and limb matmul 2^20 vs fused")
     path_launches = {"matmul lde 2^20": check_lde_routes(dev)}
 
-    phase("golden proof on cuda")
-    data, witness, t_prove, t_verify = prove_fibonacci(3, 2, 28, 8, dev)
+    phase("golden proof on cuda, and its script verifier")
+    run = prove_fibonacci(3, 2, 28, 8, dev, emit=True)
+    data, witness = run["data"], run["witness"]
     sha = hashlib.sha256(data).hexdigest()
-    print(f"sha256 {sha} bytes {len(data)} witness {witness} prove {t_prove:.3f} s verify {t_verify:.3f} s")
+    print(f"sha256 {sha} bytes {len(data)} witness {witness} prove {run['prove_s']:.3f} s "
+          f"verify {run['verify_s']:.3f} s emit and execute {run['emit_s']:.3f} s")
     if (sha, len(data), witness) != (GOLDEN_PROOF_SHA256, GOLDEN_PROOF_LEN, GOLDEN_POW_WITNESS):
         raise AssertionError("golden proof bytes differ from the frozen ones")
+    digest = report_digest(run["report"])
+    print(f"report {json.dumps(digest)}")
+    if digest != GOLDEN_REPORT:
+        raise AssertionError(f"golden script-verifier report {digest} differs from the frozen {GOLDEN_REPORT}")
 
     phase("north-star prove on cuda (fused LDE route)")
     launches = path_launches["prove 2^20"] = run_prove("north star", dev, NORTH_STAR, PROOF_2_20)
@@ -824,6 +967,16 @@ def main() -> int:
     # each of the two LDEs: the blocks route's four launches
     expect_launches("2^22", launches, {"dif_cols.cols": 2, "dif_cols.last": 2, "dit_cols.first": 2,
                                        "dit_cols.cols": 2})
+
+    phase("wide row on cuda: prove, verify, emit the script verifier")
+    launches = path_launches["wide row"] = run_wide_row(dev)
+    for name in ("lde_inverse", "lde_forward", "dit_cols.first", "dit_cols.cols", "dif_cols.cols", "dif_cols.last",
+                 "tapleaf_subtrees", "tapbranch_levels"):
+        if launches[name] == 0:
+            raise AssertionError(f"{name} was never launched on the wide row's path: {launches}")
+    # the trace's and the one quotient chunk's LDE, each on the fused route
+    expect_launches("wide row", launches, {"lde_inverse": 2, "dif_cols.cols": 2, "dif_cols.last": 2,
+                                           "lde_forward": 2, "dit_cols.first": 2, "dit_cols.cols": 2})
 
     loaded = [
         m for m in sys.modules

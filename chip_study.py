@@ -1,6 +1,6 @@
 """Longer measurements of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_study.py [kernels | sass | routes | device | suffix | busy | peak | fri_tail ...]
+    python3 chip_study.py [kernels | sass | routes | device | suffix | busy | peak | wide | fri_tail ...]
 
 `chip_smoke.py` checks the port; this script measures what it leaves
 out, for PERF.md (every phase, or the phases named):
@@ -18,6 +18,8 @@ out, for PERF.md (every phase, or the phases named):
 - one prove at 2^20 and one at 2^22 rows under `torch.profiler`: the
   card's busy share and its largest items;
 - the span of a 2^22-row prove inside which its peak device memory is set;
+- the wide row's prove (chip_smoke.py's WIDE_ROW): busy share, largest
+  items and the span that sets its peak;
 - one FRI layer (fold and commit) on the card and on the host at the sizes
   around the host-tail switch (`fri/prover.py HOST_TAIL_MAX_HALF`).
 
@@ -254,17 +256,35 @@ def suffix_builder(dev) -> None:
     print(f"suffix words of 2^22 leaves ({plan.suf_words} words each): {ms:.3f} ms")
 
 
-def busy_share(dev, cfg: dict) -> None:
-    """One prove under torch.profiler (after an unprofiled one): the card's
-    summed device self time over the prove's wall time, and the largest
-    items."""
+def prove_wide(dev) -> float:
+    """One prove of chip_smoke.py's wide row (RecursionAir 2^18 x 163,
+    blowup 16, 16 queries, L = 5) through `standard_config`; returns its
+    seconds."""
+    from tapstark_torch.airs import RecursionAir, generate_recursion_trace
+    from tapstark_torch.field import F
+    from tapstark_torch.stark import prove
+    from tapstark_torch.stark.config import standard_config
+
+    cfg = smoke.WIDE_ROW
+    config = standard_config(cfg["log_blowup"], cfg["num_queries"], cfg["pow_bits"], device=dev,
+                             log_final_poly_len=cfg["log_final_poly_len"])
+    trace, pis = generate_recursion_trace(1 << cfg["log_n"])
+    t0 = time.perf_counter()
+    prove(config.pcs, RecursionAir(), config.challenger(), trace, [F(x) for x in pis])
+    return time.perf_counter() - t0
+
+
+def busy_share(dev, name: str, run_prove) -> None:
+    """One prove (`run_prove(dev)` returns its seconds) under
+    torch.profiler, after an unprofiled one: the card's summed device self
+    time over the prove's wall time, and the largest items."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    _, _, t_prove, _ = smoke.prove_fibonacci(device=dev, **cfg)
-    print(f"2^{cfg['log_n']} rows: unprofiled prove {t_prove:.3f} s")
+    t_prove = run_prove(dev)
+    print(f"{name}: unprofiled prove {t_prove:.3f} s")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, _, t_prove, _ = smoke.prove_fibonacci(device=dev, **cfg)
+        t_prove = run_prove(dev)
     # the card's own events (kernels, copies); an aten op's entry repeats
     # the device time of the kernels it launched
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
@@ -274,9 +294,14 @@ def busy_share(dev, cfg: dict) -> None:
         print(f"  {e.self_device_time_total / 1e3:9.2f} ms  x{e.count:<6} {e.key[:90]}")
 
 
-def peak_memory(dev) -> None:
-    """Which span sets the peak device memory of a 2^22-row prove: the
-    running peak (`max_memory_allocated`) read as each span ends (the
+def fib_prove(cfg: dict):
+    """`run_prove` for `busy_share` / `peak_memory`: a Fibonacci prove."""
+    return lambda dev: smoke.prove_fibonacci(device=dev, **cfg)["prove_s"]
+
+
+def peak_memory(dev, name: str, run_prove) -> None:
+    """Which span sets the peak device memory of a prove (`run_prove(dev)`):
+    the running peak (`max_memory_allocated`) read as each span ends (the
     provers' and the commit's `span` replaced for the run); the span that
     first ends at the final peak holds the allocation that set it."""
     import contextlib
@@ -300,11 +325,11 @@ def peak_memory(dev) -> None:
     with contextlib.ExitStack() as patches:
         for module in (tcs, fri_prover, stark_prover):
             patches.enter_context(mock.patch.object(module, "span", span))
-        smoke.prove_fibonacci(device=dev, **smoke.BLOCKS_PROVE)
+        run_prove(dev)
     peak = torch.cuda.max_memory_allocated(dev)
     first = next(i for i, (_, m) in enumerate(seen) if m == peak)
     steps = [(name, m) for i, (name, m) in enumerate(seen) if i == 0 or m > seen[i - 1][1]]
-    print(f"2^22 prove: peak {peak / 2**30:.2f} GiB, first reached by the end of span {seen[first][0]} "
+    print(f"{name}: peak {peak / 2**30:.2f} GiB, first reached by the end of span {seen[first][0]} "
           f"(span end {first + 1} of {len(seen)}); the running peak rose at: "
           + ", ".join(f"{name} {m / 2**30:.2f}" for name, m in steps))
 
@@ -354,8 +379,12 @@ PHASES = {  # name: (title, what runs); `python3 chip_study.py [name ...]` runs 
     "device": ("NTT and limb-matmul kernels' device time at the path shapes (torch.profiler)", device_times),
     "suffix": ("leaf-suffix builder", suffix_builder),
     "busy": ("card busy share (torch.profiler), 2^20 and 2^22 rows",
-             lambda dev: [busy_share(dev, cfg) for cfg in (smoke.NORTH_STAR, smoke.BLOCKS_PROVE)]),
-    "peak": ("the 2^22 prove's peak device memory, by span", peak_memory),
+             lambda dev: [busy_share(dev, f"2^{cfg['log_n']} rows", fib_prove(cfg))
+                          for cfg in (smoke.NORTH_STAR, smoke.BLOCKS_PROVE)]),
+    "peak": ("the 2^22 prove's peak device memory, by span",
+             lambda dev: peak_memory(dev, "2^22 prove", fib_prove(smoke.BLOCKS_PROVE))),
+    "wide": ("the wide row's prove: busy share and peak device memory, by span",
+             lambda dev: [busy_share(dev, "wide row", prove_wide), peak_memory(dev, "wide row", prove_wide)]),
     "fri_tail": ("fri host tail: one layer on the card vs on the host", fri_tail),
 }
 

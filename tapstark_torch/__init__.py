@@ -9,8 +9,14 @@ Copied from `tapstark` (jax-free host layers; each a verbatim copy except
 where jax code was dropped or replaced): field/constants.py and scalar.py,
 utils, hashes/{sha256,ripemd160,blake3}.py, script/, commit/ (Winternitz,
 bit commitments, taptree, TCS, TapTreeMmcs), native/ (the C++ SHA-NI
-engine, built into _build/), the host challenger, air/ (AirBuilder,
-symbolic degrees) and airs/ (Fibonacci, MulAir).
+engine, built into _build/), the host challenger (its grind also checks
+batches as torch tensor ops on a device), air/ (AirBuilder, symbolic
+degrees), airs/ (Fibonacci, MulAir, WideAir, RecursionAir), dsl/ (the
+Bitcoin-Script expression DSL, u32 and field gadgets, the in-script
+Blake3 and challenger replay, the constraint builders),
+fri/script_verifier.py, stark/script_verifier.py, stark/check.py
+(`prove(debug=True)`) and stark/config.py (`standard_config`, on the card
+unless given a device); TwoAdicFriPcs.generate_verify_expr in fri/pcs.py.
 
 Carried here as twins of modules whose reference imports jax:
   field/device.py            Montgomery BabyBear / EF4 ops on tensors

@@ -27,10 +27,12 @@ redesigned for in-script replay cost (v2):
 - PoW grind: witness w such that after observe(w), sample_bits(bits) == 0.
   The reference searches with rayon find_any (nondeterministic winner); this
   implementation deterministically returns the SMALLEST witness, searched as
-  a vectorized blake3 batch.
+  a vectorized blake3 batch (torch tensors on a device at high
+  difficulty).
 
 The transcript is a host-side state machine; the grind is the only heavy
-part and runs as a batched numpy kernel on the host.
+part and runs as a batched numpy kernel on the host, or as torch tensor
+ops on a device.
 """
 
 from __future__ import annotations
@@ -169,36 +171,49 @@ class BfChallenger:
         self.observe(witness)
         return self.sample_bits(bits) == 0
 
-    def _grind_batch_ok(self, ws, bits: int, xp=np):
-        """Vectorized check over candidate witnesses against the current
+    def _grind_batch_ok(self, ws, bits: int):
+        """Vectorized check over candidate witnesses (a numpy uint32 array,
+        or an int64 torch tensor on any device) against the current
         (cv, pending-input) state. observe(w); sample_bits(bits) is always
         exactly one compression of block = pending + [w] + zero padding with
         block_len 4*(len(pending)+1) — whether w completes the block (the
         absorb compression feeds the output buffer) or the squeeze flushes
         the partial block. The first popped word is h7."""
-        shape = ws.shape
         pend = self.input_buffer
-        blocks = [xp.full(shape, p, xp.uint32) for p in pend]
-        blocks += [xp.asarray(ws, dtype=xp.uint32)]
-        blocks += [xp.zeros(shape, xp.uint32)] * (RATE - 1 - len(pend))
-        cv = [xp.full(shape, w, xp.uint32) for w in self.cv]
-        out = compress_batch(xp, blocks, block_len=4 * (len(pend) + 1), cv=cv)
-        return (out[7] >> xp.uint32(32 - bits)) == 0
+        zero = ws * 0
+        blocks = [zero + p for p in pend] + [ws] + [zero] * (RATE - 1 - len(pend))
+        out = compress_batch(blocks, block_len=4 * (len(pend) + 1), cv=self.cv)
+        return (out[7] >> (32 - bits)) == 0
 
-    def grind(self, bits: int, batch: int = 1 << 14) -> int:
+    def grind(self, bits: int, batch: int | None = None, use_device: bool | None = None,
+              device=None) -> int:
         """Deterministic: returns the smallest valid witness and advances the
-        transcript exactly like check_witness on it."""
+        transcript exactly like check_witness on it. High-difficulty grinds
+        (>= 20 bits) check each batch as torch tensor ops on `device` (the
+        card unless the caller names another device); the others as a numpy
+        batch on the host."""
+        if use_device is None:
+            use_device = bits >= 20
+        if batch is None:
+            batch = 1 << 22 if use_device else 1 << 14
+        dev = (device if device is not None else "cuda") if use_device else None
         start = 0
         witness = None
         while start < 1 << 32:
-            ws = np.arange(start, min(start + batch, 1 << 32), dtype=np.uint64).astype(
-                np.uint32
-            )
-            idx = np.flatnonzero(self._grind_batch_ok(ws, bits))
-            if idx.size:
-                witness = int(ws[idx[0]])
+            stop = min(start + batch, 1 << 32)
+            if dev is not None:
+                import torch
+
+                ws = torch.arange(start, stop, dtype=torch.int64, device=dev)
+                hits = torch.nonzero(self._grind_batch_ok(ws, bits))
+                witness = start + int(hits[0, 0]) if hits.numel() else None
+            else:
+                ws = np.arange(start, stop, dtype=np.uint64).astype(np.uint32)
+                idx = np.flatnonzero(self._grind_batch_ok(ws, bits))
+                witness = int(ws[idx[0]]) if idx.size else None
+            if witness is not None:
                 break
-            start += batch
+            start = stop
         if witness is None:
             raise RuntimeError("failed to find grind witness")
         assert self.check_witness(bits, witness)

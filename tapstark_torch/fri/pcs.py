@@ -8,7 +8,9 @@
   with barycentric ys, alpha-power offsets and precomputed inverse
   denominators, one reduced polynomial per height, then FRI;
 - verify: per-query reduced-opening reconstruction + FRI verification
-  (exact host arithmetic).
+  (exact host arithmetic);
+- generate_verify_expr: the Bitcoin-Script FRI/PCS verifier segments,
+  emitted while the openings are verified natively (host code).
 
 The LDEs and the reduction run on `device` (int32 Montgomery tensors).
 """
@@ -52,6 +54,14 @@ from .proof import FriProof
 # columns per reduction step of the open: bounds the (rows, cols, 4) int64
 # temporaries of wide matrices (the reference's col_chunk)
 _COL_CHUNK = 64
+
+# Script-verifier spill thresholds (see generate_verify_expr.open_input):
+# a segment's witness must leave execution headroom under Bitcoin's
+# 1000-element stack, so a query script gets ~700 witness limbs and wide
+# reduced-opening groups spill into chained sub-scripts of <=120 columns
+# (5 limbs each: EF4 p_at_z + base p_at_x) plus boundary accumulators.
+_STACK_BUDGET = 700
+_SPILL_COLS = 120
 
 
 @dataclass
@@ -313,6 +323,153 @@ class TwoAdicFriPcs:
             ]
 
         fri_verifier.verify_challenges(self.fri, proof, fri_challenges, open_input)
+
+    # -- script-verifier emission ------------------------------------------
+    def generate_verify_expr(self, rounds, proof: FriProof, challenger: BfChallenger):
+        """Emit the Bitcoin-Script FRI/PCS verification expressions while
+        natively verifying the openings (reference two_adic_pcs.rs:552-675).
+        Returns the ManagerAssign with one InputManager per FRI query."""
+        from ..dsl.expr import Expr
+        from . import script_verifier as fri_script
+
+        alpha: EF4 = challenger.sample()
+        log_global_max_height = (
+            len(proof.commit_phase_commits)
+            + self.fri.log_blowup
+            + self.fri.log_final_poly_len
+        )
+
+        fri_challenges = fri_script.bf_sample_challenges(self.fri, proof, challenger)
+
+        def open_input(query_times_index, index, input_proof, manager, manager_assign):
+            # pass 1: native batch verification + flatten the per-(matrix,
+            # point) reduction work in assignment order
+            groups = []  # (log_height, x_minus_z, ps_at_z, mat_opening)
+            for batch_opening, (batch_commit, mats) in zip(input_proof, rounds):
+                if not self.mmcs.verify_batch(
+                    query_times_index,
+                    batch_opening.opened_values,
+                    batch_opening.opening_proof,
+                    batch_commit,
+                ):
+                    raise fri_verifier.FriError("input batch opening invalid")
+
+                for mat_opening, (mat_domain, mat_points_and_values) in zip(
+                    batch_opening.opened_values, mats
+                ):
+                    log_height = mat_domain.log_n + self.fri.log_blowup
+                    bits_reduced = log_global_max_height - log_height
+                    rev_reduced_index = reverse_bits_len(
+                        index >> bits_reduced, log_height
+                    )
+                    x = F.generator() * F.two_adic_generator(log_height).exp(
+                        rev_reduced_index
+                    )
+                    for z, ps_at_z in mat_points_and_values:
+                        groups.append(
+                            (log_height, -z + EF4.from_base(x), ps_at_z, mat_opening)
+                        )
+
+            # pass 2: emit. A query script's witness must fit Bitcoin's
+            # 1000-element stack; wide matrices SPILL their reduced-opening
+            # sum into chained sub-scripts ("ro-part:k") whose running EF4
+            # accumulators are bit-committed at the boundaries — the main
+            # query script consumes one committed group value per spilled
+            # group. Small configs keep the round-1 inline emission.
+            fold_limbs = 12 * len(proof.commit_phase_commits) + 8
+            budget = _STACK_BUDGET - fold_limbs
+            alpha_pows: dict[int, EF4] = {}
+            ro_exprs: dict[int, Expr] = {}
+            ro_natives: dict[int, EF4] = {}
+            part = 0
+
+            def _ef(v):
+                return v if isinstance(v, EF4) else EF4.from_base(v)
+
+            for log_height, x_minus_z, ps_at_z, mat_opening in groups:
+                ap = alpha_pows.setdefault(log_height, EF4.one())
+                ro = ro_exprs.setdefault(log_height, Expr.constant(EF4.zero()))
+                ro_n = ro_natives.setdefault(log_height, EF4.zero())
+                inv_native = x_minus_z.inverse()
+                group_limbs = 5 * len(ps_at_z) + 4
+                if group_limbs <= budget:
+                    budget -= group_limbs
+                    # p_at_z is assigned POSITIVELY (the reference assigns
+                    # -p_at_z, two_adic_pcs.rs:652): the same opened values
+                    # appear positively in the quotient/constraint segments,
+                    # so positive assignment dedups their u32 bit commitments
+                    # across segments.
+                    acc = Expr.constant(EF4.zero())
+                    acc_n = EF4.zero()
+                    for p_at_x, p_at_z in zip(mat_opening, ps_at_z):
+                        acc = acc - Expr.constant(ap) * (
+                            manager.assign_input_f(p_at_z)
+                            - manager.assign_input_f(p_at_x)
+                        )
+                        acc_n = acc_n - ap * (_ef(p_at_z) - _ef(p_at_x))
+                        ap = ap * alpha
+                    # the group's quotient value g = acc/(x-z) is the hint;
+                    # verify the multiplied-through form g*(x-z) == acc
+                    # (constant-Karatsuba) instead of computing acc*inv
+                    # (dynamic Karatsuba) — same hint-commitment count
+                    g_native = acc_n * inv_native
+                    g_in = manager.assign_hint_input_f(g_native)
+                    manager.add_hint_verify(
+                        (g_in * Expr.constant(x_minus_z)).equal_verify(acc)
+                    )
+                    ro_exprs[log_height] = ro + g_in
+                    ro_natives[log_height] = ro_n + g_native
+                else:
+                    budget -= 4  # the committed group value in the main script
+                    s_native = EF4.zero()
+                    s_expr = None
+                    cols = list(zip(mat_opening, ps_at_z))
+                    while cols:
+                        chunk, cols = cols[:_SPILL_COLS], cols[_SPILL_COLS:]
+                        sub = manager_assign.next_manager(
+                            f"fri-pcs-verify query_index:{index} ro-part:{part}"
+                        )
+                        part += 1
+                        s_expr = (
+                            Expr.constant(EF4.zero())
+                            if s_expr is None
+                            else sub.assign_input_f(s_native)
+                        )
+                        for p_at_x, p_at_z in chunk:
+                            s_expr = s_expr - Expr.constant(ap) * (
+                                sub.assign_input_f(p_at_z)
+                                - sub.assign_input_f(p_at_x)
+                            )
+                            s_native = s_native - ap * (_ef(p_at_z) - _ef(p_at_x))
+                            ap = ap * alpha
+                        if cols:
+                            sub.set_exec_dsl(
+                                s_expr.equal_verify(sub.assign_input_f(s_native))
+                            )
+                        else:
+                            # multiplied-through division: commit the group
+                            # value g and verify g*(x-z) == s in the last
+                            # chunk (no inverse hint, no dynamic Karatsuba)
+                            g_native = s_native * inv_native
+                            g_out = sub.assign_input_f(g_native)
+                            sub.set_exec_dsl(
+                                (g_out * Expr.constant(x_minus_z)).equal_verify(
+                                    s_expr
+                                )
+                            )
+                            ro_exprs[log_height] = ro + manager.assign_input_f(
+                                g_native
+                            )
+                            ro_natives[log_height] = ro_n + g_native
+                alpha_pows[log_height] = ap
+            return [
+                (lh, ro_exprs[lh], ro_natives[lh])
+                for lh in sorted(ro_exprs.keys(), reverse=True)
+            ]
+
+        return fri_script.bf_verify_challenges(
+            self.fri, proof, fri_challenges, open_input
+        )
 
 
 def _mont_tensor(canonical: np.ndarray, device) -> torch.Tensor:

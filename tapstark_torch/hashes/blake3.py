@@ -3,7 +3,7 @@
 The Fiat-Shamir challenger permutes its 64-byte sponge state with a single
 blake3 hash (reference basic/src/challenger/mod.rs:34-48), and the PoW grind
 brute-forces that hash; the batched compression here runs the grind as one
-vectorized numpy batch over candidate witnesses.
+vectorized batch over candidate witnesses (numpy, or torch tensors on a device).
 
 No blake3 package is available in this environment; this is a from-spec
 implementation validated against the official test vectors.
@@ -11,7 +11,6 @@ implementation validated against the official test vectors.
 
 from __future__ import annotations
 
-import numpy as np
 
 IV = (
     0x6A09E667,
@@ -48,18 +47,10 @@ def _g(st, a, b, c, d, mx, my):
     st[b] = _rotr(st[b] ^ st[c], 7)
 
 
-def compress(
-    chaining_value, block_words, counter: int, block_len: int, flags: int
-) -> list[int]:
-    """One compression; returns the full 16-word output state."""
-    st = [
-        *chaining_value[:8],
-        *IV[:4],
-        counter & _M32,
-        (counter >> 32) & _M32,
-        block_len,
-        flags,
-    ]
+def _rounds(st, block_words) -> None:
+    """The seven rounds, in place on the 16-word state. Words are ints, or
+    arrays/tensors of ints (every add and shift in `_g` is masked to 32
+    bits, a no-op on uint32)."""
     m = list(block_words)
     for r in range(7):
         _g(st, 0, 4, 8, 12, m[0], m[1])
@@ -72,6 +63,21 @@ def compress(
         _g(st, 3, 4, 9, 14, m[14], m[15])
         if r != 6:
             m = [m[p] for p in MSG_PERMUTATION]
+
+
+def compress(
+    chaining_value, block_words, counter: int, block_len: int, flags: int
+) -> list[int]:
+    """One compression; returns the full 16-word output state."""
+    st = [
+        *chaining_value[:8],
+        *IV[:4],
+        counter & _M32,
+        (counter >> 32) & _M32,
+        block_len,
+        flags,
+    ]
+    _rounds(st, block_words)
     out = [st[i] ^ st[i + 8] for i in range(8)]
     out += [st[i + 8] ^ chaining_value[i] for i in range(8)]
     return out
@@ -119,51 +125,19 @@ def blake3(data: bytes) -> bytes:
 
 
 # ---------------------------------------------------------------------------
-# Batched compression (numpy uint32 arrays) — PoW grind kernel
+# Batched compression — PoW grind kernel
 # ---------------------------------------------------------------------------
 
 
-def _g_vec(xp, st, a, b, c, d, mx, my):
-    def rotr(x, n):
-        return (x >> n) | (x << (32 - n))
-
-    st[a] = st[a] + st[b] + mx
-    st[d] = rotr(st[d] ^ st[a], 16)
-    st[c] = st[c] + st[d]
-    st[b] = rotr(st[b] ^ st[c], 12)
-    st[a] = st[a] + st[b] + my
-    st[d] = rotr(st[d] ^ st[a], 8)
-    st[c] = st[c] + st[d]
-    st[b] = rotr(st[b] ^ st[c], 7)
-
-
-def compress_batch(xp, block_words, counter=0, block_len=64, flags=CHUNK_START | CHUNK_END | ROOT, cv=None):
+def compress_batch(block_words, counter=0, block_len=64, flags=CHUNK_START | CHUNK_END | ROOT, cv=IV):
     """Vectorized single-block compression.
 
-    xp: numpy or jax.numpy module. block_words: list of 16 uint32 arrays of a
-    common batch shape. cv: optional chaining value — list of 8 uint32
-    arrays/scalars (defaults to the blake3 IV). Returns list of 8 uint32
-    output arrays (the digest words h_i = v_i ^ v_{i+8})."""
-    shape = block_words[0].shape
-    u32 = xp.uint32
-
-    def const(v):
-        return xp.broadcast_to(xp.asarray(v, dtype=u32), shape)
-
-    if cv is None:
-        cv = [const(IV[i]) for i in range(8)]
-    st = [xp.asarray(c, dtype=u32) for c in cv] + [const(IV[i]) for i in range(4)]
-    st += [const(counter & _M32), const((counter >> 32) & _M32), const(block_len), const(flags)]
-    m = [xp.asarray(w, dtype=u32) for w in block_words]
-    for r in range(7):
-        _g_vec(xp, st, 0, 4, 8, 12, m[0], m[1])
-        _g_vec(xp, st, 1, 5, 9, 13, m[2], m[3])
-        _g_vec(xp, st, 2, 6, 10, 14, m[4], m[5])
-        _g_vec(xp, st, 3, 7, 11, 15, m[6], m[7])
-        _g_vec(xp, st, 0, 5, 10, 15, m[8], m[9])
-        _g_vec(xp, st, 1, 6, 11, 12, m[10], m[11])
-        _g_vec(xp, st, 2, 7, 8, 13, m[12], m[13])
-        _g_vec(xp, st, 3, 4, 9, 14, m[14], m[15])
-        if r != 6:
-            m = [m[p] for p in MSG_PERMUTATION]
+    block_words: 16 numpy uint32 arrays, or 16 int64 torch tensors with
+    words in [0, 2^32) (torch has no unsigned 32-bit arithmetic), of a
+    common shape and device. cv: 8 chaining-value ints (defaults to the
+    blake3 IV). Returns the 8 digest words h_i = v_i ^ v_{i+8}, of the
+    block words' type."""
+    zero = block_words[0] * 0
+    st = [zero + (v & _M32) for v in (*cv, *IV[:4], counter, counter >> 32, block_len, flags)]
+    _rounds(st, block_words)
     return [st[i] ^ st[i + 8] for i in range(8)]

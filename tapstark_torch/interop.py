@@ -2,10 +2,11 @@
 
 Field arrays cross as Montgomery words: numpy uint32 on the JAX side,
 int32 tensors here. Configurations cross by value: `pcs_from_reference`
-builds the port's own TapTreeMmcs and BcManager from the reference
-object's fields, so both packages derive the same bit-commitment secrets
-in the same order. Proofs cross as bytes: the two serdes write the same
-format. Nothing of the JAX package is imported here.
+(and `config_from_reference` around it) builds the port's own
+TapTreeMmcs and BcManager from the reference object's fields, so both
+packages derive the same bit-commitment secrets in the same order.
+Proofs cross as bytes: the two serdes write the same format. Nothing of
+the JAX package is imported here.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 from .commit import BcManager, TapTreeMmcs
 from .fri.config import FriConfig
 from .fri.pcs import TwoAdicFriPcs
+from .stark.config import StarkConfig
 
 
 def tensor_from_mont_np(a: np.ndarray, device="cpu") -> torch.Tensor:
@@ -49,3 +51,11 @@ def pcs_from_reference(ref_pcs, device) -> TwoAdicFriPcs:
         log_final_poly_len=f.log_final_poly_len,
     )
     return TwoAdicFriPcs(mmcs_from_reference(ref_pcs.mmcs), fri, device)
+
+
+def config_from_reference(ref_config, device) -> StarkConfig:
+    """The port's StarkConfig for a JAX-package one, its PCS on `device`.
+    A reference PCS over a device mesh has no counterpart here."""
+    if getattr(ref_config.pcs, "mesh", None) is not None:
+        raise NotImplementedError("config_from_reference: a device mesh is not supported")
+    return StarkConfig(pcs=pcs_from_reference(ref_config.pcs, device))

@@ -21,6 +21,7 @@ from ..field.scalar import EF4, F
 from ..fri.pcs import TwoAdicFriPcs
 from ..utils import log2_strict
 from ..utils.profiling import span
+from .check import check_constraints
 from .proof import Commitments, OpenedValues, Proof
 
 
@@ -30,7 +31,11 @@ def prove(
     challenger: BfChallenger,
     trace: np.ndarray,  # (n, width) canonical uint32
     public_values: list[F],
+    debug: bool = False,
 ) -> Proof:
+    if debug:
+        check_constraints(air, trace, public_values)
+
     dev = pcs.device
     degree = int(trace.shape[0])
     log_degree = log2_strict(degree)

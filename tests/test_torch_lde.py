@@ -39,7 +39,8 @@ def _evals(seed, log_n, w):
 def test_plain_lde_matches_jax(log_n):
     """Widths 1, 2, 4 and blowups 2, 4 against one JAX LDE of width 4 at
     blowup 4: columns are independent, and the blowup-2 coset is every
-    second point of the blowup-4 one (shift·w_2n^k = shift·w_4n^2k)."""
+    second point of the blowup-4 one (shift·w_2n^k = shift·w_4n^2k). At
+    2^5 rows also the wide row's width 163 at blowup 16."""
     x = _evals(log_n, log_n, 4)
     ref = np.asarray(coset_lde_batch_jit(jnp.asarray(x), 2, SHIFT))
     for w in (1, 2, 4):
@@ -52,6 +53,13 @@ def test_plain_lde_matches_jax(log_n):
             np.testing.assert_array_equal(
                 mont_np_from_tensor(coset_lde_batch_auto(xt, log_blowup, SHIFT)), want
             )
+    if log_n == 5:
+        x = _evals(163, log_n, 163)
+        want = np.asarray(coset_lde_batch_jit(jnp.asarray(x), 4, SHIFT))
+        xt = tensor_from_mont_np(x)
+        halves = cuda_ntt.lde_forward(cuda_ntt.lde_inverse(xt), 4, SHIFT)
+        np.testing.assert_array_equal(mont_np_from_tensor(halves), want)
+        np.testing.assert_array_equal(mont_np_from_tensor(coset_lde_batch_auto(xt, 4, SHIFT)), want)
 
 
 @pytest.mark.parametrize("log_n,log_blowup,w", [(8, 2, 3), (9, 1, 2)])
@@ -101,13 +109,15 @@ def test_lde_entry_points_raise_off_cpu_and_cuda():
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain():
     """Both halves at (log_n, w, log_blowup) = (3, 2, 2), (11, 3, 1), (20,
-    2, 2), (20, 4, 2) (the north star's trace and quotient shapes), with the
+    2, 2), (20, 4, 2) (the north star's trace and quotient shapes), (5,
+    163, 4), (18, 163, 4), (18, 4, 4) (the wide row's: blowup 16), with the
     launches each counts, its own and the DIF or DIT kernels' it runs on;
-    one test, not four cases: see ROADMAP.md on how the suite's item count
+    one test, not many cases: see ROADMAP.md on how the suite's item count
     places the slow pre-port tests in the parallel run."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
-    for log_n, w, log_blowup in [(3, 2, 2), (11, 3, 1), (20, 2, 2), (20, 4, 2)]:
+    for log_n, w, log_blowup in [(3, 2, 2), (11, 3, 1), (20, 2, 2), (20, 4, 2), (5, 163, 4), (18, 163, 4),
+                                 (18, 4, 4)]:
         x = tensor_from_mont_np(_evals(400 + log_n, log_n, w), "cuda")
         before, before_dit = dict(cuda_ntt.launches), dict(cols_ntt.launches)
         coeffs = cuda_ntt.lde_inverse(x)

@@ -182,23 +182,27 @@ def test_mod_matmul_raises_off_cpu_and_cuda_and_on_bad_shapes():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("log_r,b", [(7, 1 << 14), (6, 1000), (3, 4), (0, 7)])
-def test_cuda_mod_matmul_matches_plain(log_r, b):
+def test_cuda_mod_matmul_matches_plain():
+    """Both directions and output forms, with and without twiddle, on
+    random and extreme inputs at (log R, B) = (7, 2^14), (6, 1000), (3, 4),
+    (0, 7). One test, not four cases: see ROADMAP.md on how the suite's
+    item count places the slow pre-port tests in the parallel run."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     dev = torch.device("cuda")
-    r = 1 << log_r
-    width = 2 if b % 2 == 0 else b
-    tw = tensor_from_mont_np(np_to_mont(_canon(20 + log_r, r, b)), dev)
-    for x in (tensor_from_mont_np(_canon(10 + log_r, r, b), dev),
-              *(torch.full((r, b), v, dtype=torch.int64).to(torch.int32).to(dev) for v in EXTREMES)):
-        for inverse in (False, True):
-            before = mm.launches["mod_matmul"]
-            for t in (None, tw):
-                for wd in (None, width):
-                    assert torch.equal(mm.mod_matmul(x, log_r, inverse, t, wd),
-                                       mm.mod_matmul_plain(x, log_r, inverse, t, wd))
-            assert mm.launches["mod_matmul"] == before + 4
+    for log_r, b in [(7, 1 << 14), (6, 1000), (3, 4), (0, 7)]:
+        r = 1 << log_r
+        width = 2 if b % 2 == 0 else b
+        tw = tensor_from_mont_np(np_to_mont(_canon(20 + log_r, r, b)), dev)
+        for x in (tensor_from_mont_np(_canon(10 + log_r, r, b), dev),
+                  *(torch.full((r, b), v, dtype=torch.int64).to(torch.int32).to(dev) for v in EXTREMES)):
+            for inverse in (False, True):
+                before = mm.launches["mod_matmul"]
+                for t in (None, tw):
+                    for wd in (None, width):
+                        assert torch.equal(mm.mod_matmul(x, log_r, inverse, t, wd),
+                                           mm.mod_matmul_plain(x, log_r, inverse, t, wd))
+                assert mm.launches["mod_matmul"] == before + 4
     with pytest.raises(ValueError):
         mm.mod_matmul(torch.zeros((256, 4), dtype=torch.int32, device=dev), 8, False)
     evals = tensor_from_mont_np(np_to_mont(_canon(30, 1 << 12, 2)), dev)

@@ -399,9 +399,11 @@ def test_cuda_cols_match_plain():
     """Both directions at (log R, B) = (2, 4), (3, 4), (11, 4096), (12,
     3000), (14, 5), (9, 4096) (narrowed tiles), then the DIF last member
     over the column form's output at the 2^22 prove's shapes (widths 2 and
-    4) and at an odd log_n of width 3, with and without 1/n; one test, not
-    many cases: see ROADMAP.md on how the suite's item count places the
-    slow pre-port tests in the parallel run."""
+    4) and at an odd log_n of width 3, with and without 1/n; the DIT first
+    member at the same shapes; the blocks and padded LDE routes against
+    the fused one. One test, not many cases: see ROADMAP.md on how the
+    suite's item count places the slow pre-port tests in the parallel
+    run."""
     dev = _cuda()
     for log_r, b in [(2, 4), (3, 4), (11, 4096), (12, 3000), (14, 5), (9, 4096)]:
         x = tensor_from_mont_np(_mont(50 + log_r, 1 << log_r, b), dev)
@@ -426,13 +428,9 @@ def test_cuda_cols_match_plain():
     with pytest.raises(ValueError):
         cols_ntt.dit_cols(torch.zeros((1 << 15, 1), dtype=torch.int32, device=dev), 15, False)
 
-
-@pytest.mark.cuda
-def test_cuda_dit_first_matches_plain():
-    """The first member on the card against its plain version at the 2^22
-    prove's shapes (widths 2 and 4, blowup 4, with 1/n, then the second
-    member over its output) and at an odd log_n of width 3."""
-    dev = _cuda()
+    # the first member at the 2^22 prove's shapes (widths 2 and 4, blowup
+    # 4, with 1/n, then the second member over its output) and at an odd
+    # log_n of width 3
     for log_n, w, log_blowup, n_inv in [(22, 2, 2, True), (22, 4, 2, True), (7, 3, 1, False)]:
         x = tensor_from_mont_np(_mont(60 + w, 1 << log_n, w), dev)
         before = dict(cols_ntt.launches)
@@ -444,14 +442,7 @@ def test_cuda_dit_first_matches_plain():
         assert torch.equal(cols_ntt.dit_cols(b, log_c, False), cols_ntt.dit_cols_plain(b, log_c, False))
         del x, b
 
-
-@pytest.mark.cuda
-def test_cuda_lde_routes_match():
-    """The blocks and padded routes on the card against the fused one, at
-    (log_n, w, log_blowup) = (3, 2, 2), (5, 3, 1) and (12, 2, 2). One test,
-    not three cases: see ROADMAP.md on how the suite's item count places
-    the slow pre-port tests in the parallel run."""
-    dev = _cuda()
+    # the blocks and padded routes against the fused one
     for log_n, w, log_blowup in [(3, 2, 2), (5, 3, 1), (12, 2, 2)]:
         x = tensor_from_mont_np(_mont(60 + log_n, 1 << log_n, w), dev)
         want = coset_lde_batch(x, log_blowup, SHIFT)

@@ -227,8 +227,10 @@ def test_tampered_opening_rejected(golden):
 
 
 def test_golden_prove_with_jax_blocked():
-    """The port proves the golden configuration in a process where neither
-    JAX nor the JAX package can be imported."""
+    """The port proves the golden configuration, and emits and executes its
+    script verifier (the DSL and both script verifiers), in a process where
+    neither JAX nor the JAX package can be imported; the report's numbers
+    are the JAX package's (chip_smoke.py's GOLDEN_REPORT)."""
     script = textwrap.dedent(
         f"""
         import hashlib, sys
@@ -253,8 +255,12 @@ def test_golden_prove_with_jax_blocked():
         trace = generate_fibonacci_trace(0, 1, 8)
         pis = [F(0), F(1), F(int(trace[-1, 1]))]
         proof = prove(pcs, FibonacciAir(), BfChallenger(), trace, pis)
+        from tapstark_torch.stark.script_verifier import generate_script_verifier
+
+        report = generate_script_verifier(pcs, FibonacciAir(), BfChallenger(), proof, pis)
         assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tapstark")]
         data = proof_to_bytes(proof)
+        print(report.total_script_bytes, report.distinct_u32_count, report.challenger_compressions)
         print(hashlib.sha256(data).hexdigest(), len(data), proof.opening_proof.pow_witness)
         """
     )
@@ -262,4 +268,5 @@ def test_golden_prove_with_jax_blocked():
         [sys.executable, "-c", script], capture_output=True, text=True, cwd=REPO, timeout=300
     )
     assert out.returncode == 0, out.stderr[-2000:]
-    assert out.stdout.split()[-3:] == [GOLDEN_PROOF_SHA256, str(GOLDEN_PROOF_LEN), str(GOLDEN_POW_WITNESS)]
+    assert out.stdout.split()[-6:] == ["5451534", "325", "9", GOLDEN_PROOF_SHA256, str(GOLDEN_PROOF_LEN),
+                                       str(GOLDEN_POW_WITNESS)]
