@@ -23,8 +23,15 @@ and holds its report to numbers frozen from the JAX package, and proves
 the repo's widest verifier row (RecursionAir, 2^18 rows x 163 columns,
 blowup 16, 16 queries, 8 PoW bits, a final polynomial of degree < 2^5)
 through `standard_config`, verifies it and emits and executes its script
-verifier, holding the proof and the report to the JAX package's.
-(`chip_study.py` holds the longer measurements: full-size kernel times,
+verifier, holding the proof and the report to the JAX package's. Last
+it proves the flagship, a Blake3 sponge chain of 1024 compressions
+(Blake3SpongeChainAir, 65,536 rows x 1548 columns, blowup 2, 16 queries, 4
+PoW bits; and of 64 compressions, held to the JAX package's proof), checks
+the AIR's digest against the host challenger's, verifies it, and holds
+the quotient kernel (the AIR's constraint program) word for word against
+the eager constraint folder at the quotient shapes of the flagship, the
+two Fibonacci proves and the wide row. Every prove runs the quotient
+kernel. (`chip_study.py` holds the longer measurements: full-size kernel times,
 the two LDE routes at 2^22 and 2^23 rows, the NTT kernels' own device
 time, the card's busy share, the FRI host-tail switch.)
 
@@ -92,6 +99,19 @@ WIDE_REPORT = {
     "challenger_compressions": 26,
 }
 
+# the flagship (`bench_blake3.py 1024 16`, README "Flagship workload"):
+# Blake3SpongeChainAir over 1024 compressions of the messages
+# `sponge_blocks` makes, 65,536 x 1548, blowup 2, 16 queries, 4 PoW bits.
+# The JAX package cannot prove it on the card's host (its flat quotient
+# program alone peaks at ~82 GB on a CPU), so its proof is frozen from the
+# port's card run, and `tools/freeze_port_references.py blake3_port` showed
+# that the JAX package's verify accepts it; at 64 compressions (4096 rows,
+# the same settings) the proof is the JAX package's own
+# (`freeze_port_references.py blake3`).
+BLAKE3 = dict(blocks=1024, log_blowup=1, num_queries=16, pow_bits=4)
+BLAKE3_PROOF = ("0698633930bb10f7c58f142b6c1474d531a6289b5e6fc04290a973f2856cf099", 24450581, 17)
+BLAKE3_64 = dict(blocks=64, log_blowup=1, num_queries=16, pow_bits=4)
+BLAKE3_64_PROOF = ("f82b988b60cd624c16d0d792a5de5077808829a6e297f34dd7e32650459e4e9c", 23827141, 8)
 NORTH_STAR = dict(log_n=20, log_blowup=2, num_queries=28, pow_bits=8)
 # the next batch size up (bench_prover.py 22:2:28): above the fused LDE
 # range, so both LDEs take the blocks route (K3/K4's counterparts)
@@ -159,7 +179,14 @@ KERNELS = [  # name, replaced TPU kernel, source, path whose launches the JSON l
     ("tapleaf_subtrees", "tapstark/hashes/sha256_device.py:76", "tapstark_torch/csrc/sha256.cu", "prove 2^20"),  # K5
     ("tapbranch_levels", "tapstark/hashes/sha256_device.py:354", "tapstark_torch/csrc/sha256.cu", "prove 2^20"),  # K6
     ("mod_matmul", "tapstark/poly/matmul_ntt.py:165", "tapstark_torch/csrc/matmul_ntt.cu", "matmul lde 2^20"),  # K7
+    # no Pallas kernel: the JAX package's one-jit constraint folder
+    ("quotient_program", "tapstark/stark/prover.py:127", "tapstark_torch/csrc/quotient.cuh", "blake3 sponge"),
 ]
+# the quotient kernel against the eager folder: (what, AIR, log_n of the
+# trace) at each prove's quotient coset (trace rows times the AIR's
+# quotient degree), the flagship's first (the JSON row's)
+QUOTIENT_SHAPES = [("blake3 sponge", "sponge", 16), ("fibonacci 2^20", "fibonacci", 20),
+                   ("fibonacci 2^22", "fibonacci", 22), ("wide row", "recursion", 18)]
 
 # Bounds. The card's peaks (NVIDIA H100 SXM, 700 W): 3.35 TB/s of device
 # memory and, for the 32-bit integer instructions the kernels run, one
@@ -200,6 +227,14 @@ SHA_TAPBRANCH = SHA_SORT + SHA_COMPRESS + 64 * SHA_ROUND + SHA_FEED_FORWARD
 # select)
 OPS_BYTE_LIMBS = 2
 OPS_ONE_REDUCTION = 7 + 6
+# the constraint program (quotient kernel) a row: a Montgomery product each
+# mul, an add or subtract with its select each add/sub (IADD3, compare,
+# select), a negation two, a fold (acc * alpha in the quartic extension:
+# 16 Montgomery products, their sums, the W multiples, four reductions, the
+# add of x) about 40, and the last four products by 1/zeroifier
+OPS_ADD = 3
+OPS_NEG = 2
+OPS_FOLD = 40
 
 
 def bound(ops: float, nbytes: float) -> tuple[float, str, dict]:
@@ -324,6 +359,16 @@ def matmul_bound(log_r: int, b: int, with_tw: bool) -> tuple[float, str, dict]:
     }
     by = max(times, key=times.get)
     return times[by], "bytes" if by == "bytes" else "operations", times
+
+
+def quotient_bound(counts: dict, m: int, width: int) -> tuple[float, str, dict]:
+    """The quotient kernel over an (m, width) coset for a program of
+    `counts` instructions: its field operations at the issue rate (OPS_*
+    above), and the bytes: the coset, three selectors and 1/zeroifier read
+    once, the (m, 4) quotient written once."""
+    per_row = (counts["mul"] * OPS_MONT_MUL + (counts["add"] + counts["sub"]) * OPS_ADD + counts["neg"] * OPS_NEG
+               + counts["fold"] * OPS_FOLD + 4 * OPS_MONT_MUL)
+    return bound(m * per_row, 4 * m * (width + 4 + 4))
 
 
 # Kernels that must build without spilling (ptxas's report): the SHA-256
@@ -756,12 +801,13 @@ def run_counted(dev, fn):
     """fn() with spans on, and the peak device memory and every launch
     count reset just before it; prints the spans, the launches and the
     peak, and returns (fn's result, the counts read just after)."""
+    from tapstark_torch.air import program
     from tapstark_torch.hashes import sha256_device
     from tapstark_torch.poly import cols_ntt, cuda_ntt
     from tapstark_torch.poly import matmul_ntt as mm
     from tapstark_torch.utils import profiling
 
-    modules = (cuda_ntt, cols_ntt, sha256_device, mm)
+    modules = (cuda_ntt, cols_ntt, sha256_device, mm, program)
     profiling.reset()
     profiling.enable()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -842,6 +888,123 @@ def run_wide_row(dev) -> dict:
     if digest != WIDE_REPORT:
         raise AssertionError(f"wide row: report {digest} differs from the frozen {WIDE_REPORT}")
     return launches
+
+
+def sponge_blocks(n: int) -> list:
+    """The messages of `bench_blake3.py`: block b absorbs words b*16 .. b*16 + 15."""
+    return [[(b * 16 + w) & 0xFFFFFFFF for w in range(16)] for b in range(n)]
+
+
+def prove_blake3(dev, blocks: int, log_blowup: int, num_queries: int, pow_bits: int, check: bool = True) -> dict:
+    """The Blake3 sponge chain over `blocks` compressions through the port:
+    the host trace generator (timed), the AIR's digest against a host
+    BfChallenger's chaining value after it observes the blocks, prove and
+    (with `check`) verify; returns {"data": proof bytes, "witness",
+    "gen_s", "prove_s", "verify_s" (None without `check`), "shape"}."""
+    from tapstark_torch.airs import Blake3SpongeChainAir, generate_blake3_sponge_trace
+    from tapstark_torch.challenger import BfChallenger
+    from tapstark_torch.field import F
+    from tapstark_torch.stark import prove, verify
+    from tapstark_torch.stark.serde import proof_from_bytes, proof_to_bytes
+
+    msgs = sponge_blocks(blocks)
+    t0 = time.perf_counter()
+    trace, pis, digest = generate_blake3_sponge_trace(msgs)
+    t1 = time.perf_counter()
+    ch = BfChallenger()
+    for blk in msgs:
+        ch.observe_u32s(blk)
+    if digest != ch.cv:
+        raise AssertionError(f"blake3 sponge: the AIR's digest {digest} differs from the challenger's {ch.cv}")
+    pcs = make_config(num_queries, log_blowup, pow_bits, dev)
+    pis = [F(x) for x in pis]
+    air = Blake3SpongeChainAir()
+    t2 = time.perf_counter()
+    proof = prove(pcs, air, BfChallenger(), trace, pis)  # ends on the host
+    t3 = time.perf_counter()
+    data = proof_to_bytes(proof)
+    if check:
+        verify(pcs, air, BfChallenger(), proof_from_bytes(data), pis)
+    t4 = time.perf_counter()
+    return {"data": data, "witness": proof.opening_proof.pow_witness, "gen_s": t1 - t0, "prove_s": t3 - t2,
+            "verify_s": t4 - t3 if check else None, "shape": trace.shape}
+
+
+def run_blake3(dev, cfg: dict, frozen, name: str, check: bool = True) -> dict:
+    """`prove_blake3` through `run_counted`; prints the run, holds the proof
+    to `frozen` (sha256, bytes, witness) and returns the counts."""
+    run, launches = run_counted(dev, lambda: prove_blake3(dev, **cfg, check=check))
+    data, witness = run["data"], run["witness"]
+    rows, cols = run["shape"]
+    print(f"{name}: host trace generator {run['gen_s']:.3f} s for {cfg['blocks']} compressions "
+          f"({rows} x {cols}); AIR digest equal to the challenger's", flush=True)
+    print(
+        f"{name}: Blake3SpongeChainAir {rows} x {cols}, blowup 2^{cfg['log_blowup']}, {cfg['num_queries']} queries, "
+        f"{cfg['pow_bits']} PoW bits: prove {run['prove_s']:.3f} s, "
+        + (f"verify {run['verify_s']:.3f} s (accepted), " if check else "")
+        + f"proof {len(data)} bytes sha256 {hashlib.sha256(data).hexdigest()} witness {witness}", flush=True)
+    got = (hashlib.sha256(data).hexdigest(), len(data), witness)
+    if got != frozen:
+        raise AssertionError(f"{name}: proof {got} differs from the frozen {frozen}")
+    return launches
+
+
+def quotient_case(dev, air_name: str, log_n: int, seed: int):
+    """The inputs of the quotient at a prove's coset: (AIR, public values,
+    selectors, next step, random Montgomery (m, width) trace on the coset,
+    alpha), made from `seed`."""
+    from tapstark_torch.air.symbolic import get_log_quotient_degree
+    from tapstark_torch.airs import Blake3SpongeChainAir, FibonacciAir, RecursionAir
+    from tapstark_torch.field import F
+    from tapstark_torch.field.constants import P
+    from tapstark_torch.field.scalar import EF4
+    from tapstark_torch.poly.domain import TwoAdicMultiplicativeCoset
+
+    air, num_public = {"sponge": (Blake3SpongeChainAir(), 16), "fibonacci": (FibonacciAir(), 3),
+                       "recursion": (RecursionAir(), 12)}[air_name]
+    rng = np.random.default_rng(seed)
+    log_q = get_log_quotient_degree(air, num_public)
+    trace_domain = TwoAdicMultiplicativeCoset(log_n, 1)
+    coset = trace_domain.create_disjoint_domain(1 << (log_n + log_q))
+    sels = trace_domain.selectors_on_coset(coset, dev)
+    tq = _mont_on(dev, rng, coset.size(), air.width())
+    pis = [F(int(v)) for v in rng.integers(0, P, num_public)]
+    alpha = EF4(tuple(int(v) for v in rng.integers(0, P, 4)))
+    return air, pis, sels, 1 << log_q, tq, alpha
+
+
+def check_quotient_kernel(dev, stats: dict) -> None:
+    """The quotient kernel against its plain version (the eager folder) at
+    every QUOTIENT_SHAPES entry, word for word, on random cosets: the
+    kernel's median CUDA-event time of 10, the eager folder's of 3 (of 1
+    on the 1548-column AIR: about 1.3 million launches), the bound."""
+    from tapstark_torch.air import program
+
+    for i, (what, air_name, log_n) in enumerate(QUOTIENT_SHAPES):
+        air, pis, sels, step, tq, alpha = quotient_case(dev, air_name, log_n, 20 + i)
+        run = lambda: program.quotient_program(air, pis, sels, step, tq, alpha)  # noqa: E731
+        plain_times = []
+        for _ in range(1 if air.width() > 1000 else 3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = program.quotient_eager(air, pis, sels, step, tq, alpha)
+            torch.cuda.synchronize()
+            plain_times.append(1e3 * (time.perf_counter() - t0))
+        m, width = tq.shape
+        where = f"{what}: coset {m} x {width}"
+        err = compare("quotient_program", run(), want, where)
+        ms = median_ms(run, 10)
+        prog = program.program_for(air, len(pis))
+        bnd = quotient_bound(prog.counts, m, width)
+        s = stats.setdefault("quotient_program", {"max_abs_err": 0, "shapes": []})
+        s["max_abs_err"] = max(s["max_abs_err"], err)
+        s["shapes"].append({"at": where, "ms": ms, "plain_ms": statistics.median(plain_times),
+                            "bound_ms": bnd[0], "bound_by": bnd[1]})
+        print(f"kernel quotient_program {where} ({len(prog.code)} instructions {prog.counts}, {prog.slots} slots, "
+              f"{program.chunk_threads(m, prog.slots)} threads): equal, {ms:.4f} ms, plain "
+              f"{statistics.median(plain_times):.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}) = max("
+              + ", ".join(f"{k} {v:.4f}" for k, v in bnd[2].items()) + ")", flush=True)
+        del tq, want
 
 
 def expect_launches(name: str, launches: dict, want: dict) -> None:
@@ -954,7 +1117,8 @@ def main() -> int:
             raise AssertionError(f"{name} was never launched on the north-star path: {launches}")
     # each of the two LDEs: lde_inverse on the two DIF kernels, lde_forward on the two DIT kernels
     expect_launches("north star", launches, {"lde_inverse": 2, "dif_cols.cols": 2, "dif_cols.last": 2,
-                                             "lde_forward": 2, "dit_cols.first": 2, "dit_cols.cols": 2})
+                                             "lde_forward": 2, "dit_cols.first": 2, "dit_cols.cols": 2,
+                                             "quotient_program": 1})
 
     phase("2^22 prove on cuda (blocks LDE route)")
     launches = path_launches["prove 2^22"] = run_prove("blocks route", dev, BLOCKS_PROVE, PROOF_2_22)
@@ -966,7 +1130,7 @@ def main() -> int:
         raise AssertionError(f"the fused LDE kernels ran on the 2^22 path: {launches}")
     # each of the two LDEs: the blocks route's four launches
     expect_launches("2^22", launches, {"dif_cols.cols": 2, "dif_cols.last": 2, "dit_cols.first": 2,
-                                       "dit_cols.cols": 2})
+                                       "dit_cols.cols": 2, "quotient_program": 1})
 
     phase("wide row on cuda: prove, verify, emit the script verifier")
     launches = path_launches["wide row"] = run_wide_row(dev)
@@ -976,7 +1140,21 @@ def main() -> int:
             raise AssertionError(f"{name} was never launched on the wide row's path: {launches}")
     # the trace's and the one quotient chunk's LDE, each on the fused route
     expect_launches("wide row", launches, {"lde_inverse": 2, "dif_cols.cols": 2, "dif_cols.last": 2,
-                                           "lde_forward": 2, "dit_cols.first": 2, "dit_cols.cols": 2})
+                                           "lde_forward": 2, "dit_cols.first": 2, "dit_cols.cols": 2,
+                                           "quotient_program": 1})
+
+    phase("blake3 sponge chain on cuda: 1024 compressions (the flagship), 64 (the JAX package's proof)")
+    launches = path_launches["blake3 sponge"] = run_blake3(dev, BLAKE3, BLAKE3_PROOF, "blake3 sponge")
+    for name in ("lde_inverse", "lde_forward", "dit_cols.first", "dit_cols.cols", "dif_cols.cols", "dif_cols.last",
+                 "tapleaf_subtrees", "tapbranch_levels", "quotient_program"):
+        if launches[name] == 0:
+            raise AssertionError(f"{name} was never launched on the flagship's path: {launches}")
+    # the trace's and the two quotient chunks' LDEs (2^16 rows, the fused route), one quotient launch
+    expect_launches("blake3 sponge", launches, {"lde_inverse": 3, "dif_cols.cols": 3, "dif_cols.last": 3,
+                                                "lde_forward": 3, "dit_cols.first": 3, "dit_cols.cols": 3,
+                                                "quotient_program": 1})
+    run_blake3(dev, BLAKE3_64, BLAKE3_64_PROOF, "blake3 sponge 64", check=False)  # the JAX package's bytes
+    check_quotient_kernel(dev, stats)
 
     loaded = [
         m for m in sys.modules

@@ -1,6 +1,7 @@
 """Longer measurements of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_study.py [kernels | sass | routes | device | suffix | busy | peak | wide | fri_tail ...]
+    python3 chip_study.py [kernels | sass | routes | device | suffix | busy | peak | wide | fri_tail | quotient
+                           | blake3 ...]
 
 `chip_smoke.py` checks the port; this script measures what it leaves
 out, for PERF.md (every phase, or the phases named):
@@ -21,7 +22,14 @@ out, for PERF.md (every phase, or the phases named):
 - the wide row's prove (chip_smoke.py's WIDE_ROW): busy share, largest
   items and the span that sets its peak;
 - one FRI layer (fold and commit) on the card and on the host at the sizes
-  around the host-tail switch (`fri/prover.py HOST_TAIL_MAX_HALF`).
+  around the host-tail switch (`fri/prover.py HOST_TAIL_MAX_HALF`);
+- the quotient kernel (the AIR's constraint program) and the eager
+  folder at each prove's quotient coset (chip_smoke.py QUOTIENT_SHAPES):
+  each one's CUDA-event time and own device time under `torch.profiler`;
+- the flagship (chip_smoke.py BLAKE3): busy share, largest items and the
+  span that sets its peak; its proof's bytes go to
+  `chiprun_out/blake3_proof.bin`, for `tools/freeze_port_references.py
+  blake3_port`.
 
 It builds the kernels from the checkout as `chip_smoke.py` does, and
 like it loads neither JAX nor the JAX package. Without a CUDA device it
@@ -372,6 +380,69 @@ def fri_tail(dev) -> None:
               f"on host {statistics.median(times['host']):.2f} ms")
 
 
+def quotient(dev) -> None:
+    """The quotient kernel and the eager folder (its plain version) at each
+    QUOTIENT_SHAPES entry (random cosets, as chip_smoke.py makes them),
+    each under torch.profiler after a warm-up (`_device_line`): the
+    kernel's own device time a launch over 10 calls; the eager folder's
+    CUDA-event time and the device time of all its kernels, over 3 calls
+    (1 on the 1548-column AIR: about 1.3 million launches); the bound."""
+    from tapstark_torch.air import program
+
+    # every kernel first: after the eager folder's trace of ~1.3 million
+    # launches, later profiler sessions recorded no device time for the
+    # kernel on that card
+    for eager in (False, True):
+        for i, (what, air_name, log_n) in enumerate(smoke.QUOTIENT_SHAPES):
+            air, pis, sels, step, tq, alpha = smoke.quotient_case(dev, air_name, log_n, 20 + i)
+            m, width = tq.shape
+            if eager:
+                _device_line(f"eager folder {what} ({m} x {width})",
+                             lambda: program.quotient_eager(air, pis, sels, step, tq, alpha),
+                             1 if width > 1000 else 3, "quotient")
+            else:
+                _device_line(f"quotient_program {what} ({m} x {width})",
+                             lambda: program.quotient_program(air, pis, sels, step, tq, alpha), 10, "quotient")
+                prog = program.program_for(air, len(pis))
+                print(f"bound {what}: {smoke.quotient_bound(prog.counts, m, width)[0]:.4f} ms", flush=True)
+            del tq
+
+
+_flagship: dict = {}
+
+
+def prove_blake3(dev) -> float:
+    """One prove of the flagship (chip_smoke.py BLAKE3; the trace made
+    once); writes the proof's bytes to chiprun_out/blake3_proof.bin and
+    returns the prove's seconds."""
+    import hashlib
+    import os
+
+    from tapstark_torch.airs import Blake3SpongeChainAir, generate_blake3_sponge_trace
+    from tapstark_torch.challenger import BfChallenger
+    from tapstark_torch.field import F
+    from tapstark_torch.stark import prove
+    from tapstark_torch.stark.serde import proof_to_bytes
+
+    cfg = smoke.BLAKE3
+    if not _flagship:
+        t0 = time.perf_counter()
+        trace, pis, _ = generate_blake3_sponge_trace(smoke.sponge_blocks(cfg["blocks"]))
+        print(f"flagship: host trace generator {time.perf_counter() - t0:.3f} s")
+        _flagship.update(trace=trace, pis=[F(x) for x in pis])
+    pcs = smoke.make_config(cfg["num_queries"], cfg["log_blowup"], cfg["pow_bits"], dev)
+    t0 = time.perf_counter()
+    proof = prove(pcs, Blake3SpongeChainAir(), BfChallenger(), _flagship["trace"], _flagship["pis"])
+    t_prove = time.perf_counter() - t0
+    data = proof_to_bytes(proof)
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "blake3_proof.bin"), "wb") as f:
+        f.write(data)
+    print(f"flagship: prove {t_prove:.3f} s, proof {len(data)} bytes sha256 {hashlib.sha256(data).hexdigest()} "
+          f"witness {proof.opening_proof.pow_witness}", flush=True)
+    return t_prove
+
+
 PHASES = {  # name: (title, what runs); `python3 chip_study.py [name ...]` runs those
     "kernels": ("kernels at the north star's largest shapes", kernels_full_size),
     "sass": ("SHA-256 kernels' SASS instruction classes", sha_sass),
@@ -386,6 +457,10 @@ PHASES = {  # name: (title, what runs); `python3 chip_study.py [name ...]` runs 
     "wide": ("the wide row's prove: busy share and peak device memory, by span",
              lambda dev: [busy_share(dev, "wide row", prove_wide), peak_memory(dev, "wide row", prove_wide)]),
     "fri_tail": ("fri host tail: one layer on the card vs on the host", fri_tail),
+    "quotient": ("the quotient kernel's device time and the eager folder's, at each prove's coset", quotient),
+    "blake3": ("the flagship's prove: busy share and peak device memory, by span; its proof's bytes",
+               lambda dev: [busy_share(dev, "blake3 sponge", prove_blake3),
+                            peak_memory(dev, "blake3 sponge", prove_blake3)]),
 }
 
 

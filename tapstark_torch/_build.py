@@ -67,6 +67,8 @@ SIGNATURES = {
     "tapstark_dit_first": ([_ptr, _i64, _i64, *[_ptr] * 6, _i32, _i32, _i32, _i32, _i32, _ptr], _i32),
     "tapstark_matmul_constants": ([_ptr], _i32),
     "tapstark_mod_matmul": ([_ptr, _ptr, _ptr, _i64, _ptr, _i32, _i64, _i32, _ptr], _i32),
+    "tapstark_quotient_program": ([_ptr, _i32, _ptr, _ptr, _ptr, _i64, _i32, _i64, _ptr, _ptr, _u32, _u32, _u32,
+                                   _u32, _ptr, _i64, _ptr, _ptr], _i32),
 }
 
 

@@ -7,7 +7,9 @@ against four builders:
   - ProverConstraintFolder (air.folders): vectorized device evaluation over
     the quotient coset;
   - VerifierConstraintFolder (air.folders): exact host scalars at zeta;
-  - DebugConstraintBuilder (stark.check): row-by-row debugging.
+  - DebugConstraintBuilder (stark.check): row-by-row debugging;
+  - ProgramRecorder (air.program): records the constraints once as the
+    program that the quotient kernel runs over the coset on the card.
 """
 
 from __future__ import annotations

@@ -13,10 +13,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..air.folders import ProverConstraintFolder
+from ..air.program import quotient_program
 from ..air.symbolic import get_log_quotient_degree
 from ..challenger import BfChallenger
-from ..field.device import ef_mul_base, to_mont
+from ..field.device import to_mont
 from ..field.scalar import EF4, F
 from ..fri.pcs import TwoAdicFriPcs
 from ..utils import log2_strict
@@ -93,13 +93,11 @@ def quotient_values(
     air, public_values, trace_domain, quotient_domain, trace_on_quotient_domain, alpha: EF4
 ) -> torch.Tensor:
     """Constraint accumulator over the whole quotient coset divided by the
-    zeroifier (prover.rs:121-194), as an (m, 4) Montgomery tensor. The AIR's
-    eval runs once, eagerly, over whole-coset tensors."""
+    zeroifier (prover.rs:121-194), as an (m, 4) Montgomery tensor. On the
+    card, one launch of the constraint-program kernel (`air/program.py`);
+    on the CPU, its plain version, the eager folder over whole-coset
+    tensors."""
     dev = trace_on_quotient_domain.device
     sels = trace_domain.selectors_on_coset(quotient_domain, dev)
     next_step = 1 << (quotient_domain.log_n - trace_domain.log_n)
-    folder = ProverConstraintFolder(
-        trace_on_quotient_domain, next_step, public_values, sels, alpha
-    )
-    air.eval(folder)
-    return ef_mul_base(folder.accumulator.arr, sels.inv_zeroifier)
+    return quotient_program(air, public_values, sels, next_step, trace_on_quotient_domain, alpha)

@@ -1,8 +1,9 @@
 // Stand-ins for the CUDA built-ins that tapstark_torch/csrc/dit_cols.cuh,
-// dif_cols.cuh and matmul_ntt.cuh use, so that their kernels and helpers
-// compile with g++ and run on the host for the tests: one std::thread per
-// CUDA thread, one block at a time, a std::barrier for __syncthreads (see
-// dit_host.cpp); matmul_host.cpp runs the limb-matmul kernel's data flow.
+// dif_cols.cuh, matmul_ntt.cuh and quotient.cuh use, so that their kernels
+// and helpers compile with g++ and run on the host for the tests: one
+// std::thread per CUDA thread, one block at a time, a std::barrier for
+// __syncthreads (see dit_host.cpp); matmul_host.cpp runs the limb-matmul
+// kernel's data flow, quotient_host.cpp the constraint program's threads.
 #pragma once
 #include <barrier>
 #include <cstddef>
@@ -15,12 +16,19 @@ struct dim3 {
 struct uint2 {
   uint32_t x, y;
 };
+struct int4 {
+  int x, y, z, w;
+};
 
 extern thread_local dim3 threadIdx, blockIdx;
 extern dim3 blockDim;
 extern std::barrier<>* host_block_barrier;
 
 inline void __syncthreads() { host_block_barrier->arrive_and_wait(); }
+template <class T>
+inline T __ldg(const T* p) {
+  return *p;
+}
 inline uint32_t __umulhi(uint32_t a, uint32_t b) {
   return static_cast<uint32_t>((static_cast<uint64_t>(a) * b) >> 32);
 }
