@@ -28,10 +28,14 @@ it proves the flagship, a Blake3 sponge chain of 1024 compressions
 (Blake3SpongeChainAir, 65,536 rows x 1548 columns, blowup 2, 16 queries, 4
 PoW bits; and of 64 compressions, held to the JAX package's proof), checks
 the AIR's digest against the host challenger's, verifies it, and holds
-the quotient kernel (the AIR's constraint program) word for word against
-the eager constraint folder at the quotient shapes of the flagship, the
-two Fibonacci proves and the wide row. Every prove runs the quotient
-kernel. (`chip_study.py` holds the longer measurements: full-size kernel times,
+the quotient kernels (the AIR's constraint program as straight-line
+segments generated for each AIR, built before the first prove that runs
+them) word for word against the selectors and the eager constraint folder
+at the quotient shapes of the flagship, the two Fibonacci proves and the
+wide row. Every prove runs each segment of its AIR's program once, after
+one launch of `bit_reverse_cols` (the gather that writes the quotient's
+coset by columns), which is held against its plain version too.
+(`chip_study.py` holds the longer measurements: full-size kernel times,
 the two LDE routes at 2^22 and 2^23 rows, the NTT kernels' own device
 time, the card's busy share, the FRI host-tail switch.)
 
@@ -179,9 +183,18 @@ KERNELS = [  # name, replaced TPU kernel, source, path whose launches the JSON l
     ("tapleaf_subtrees", "tapstark/hashes/sha256_device.py:76", "tapstark_torch/csrc/sha256.cu", "prove 2^20"),  # K5
     ("tapbranch_levels", "tapstark/hashes/sha256_device.py:354", "tapstark_torch/csrc/sha256.cu", "prove 2^20"),  # K6
     ("mod_matmul", "tapstark/poly/matmul_ntt.py:165", "tapstark_torch/csrc/matmul_ntt.cu", "matmul lde 2^20"),  # K7
-    # no Pallas kernel: the JAX package's one-jit constraint folder
+    # no Pallas kernel: the JAX package's one-jit constraint folder; the
+    # kernels are generated per AIR (air/codegen.py) around csrc/quotient.cuh
     ("quotient_program", "tapstark/stark/prover.py:127", "tapstark_torch/csrc/quotient.cuh", "blake3 sponge"),
+    # no Pallas kernel: the JAX package's row gather of the coset; the card's writes it by columns
+    ("bit_reverse_cols", "tapstark/fri/pcs.py:191", "tapstark_torch/csrc/bitrev_cols.cu", "blake3 sponge"),
 ]
+# the coset gather against its plain version: (LDE rows, width, coset rows)
+# at the flagship's, the wide row's, Fibonacci 2^22's and 2^20's (timed
+# against the bound, the flagship's first, the JSON row's), and the
+# golden proof's
+BITREV_SHAPES = [(1 << 17, 1548, 1 << 17), (1 << 22, 163, 1 << 18), (1 << 24, 2, 1 << 22), (1 << 22, 2, 1 << 20),
+                 (32, 2, 8)]
 # the quotient kernel against the eager folder: (what, AIR, log_n of the
 # trace) at each prove's quotient coset (trace rows times the AIR's
 # quotient degree), the flagship's first (the JSON row's)
@@ -227,15 +240,24 @@ SHA_TAPBRANCH = SHA_SORT + SHA_COMPRESS + 64 * SHA_ROUND + SHA_FEED_FORWARD
 # select)
 OPS_BYTE_LIMBS = 2
 OPS_ONE_REDUCTION = 7 + 6
-# the constraint program (quotient kernel) a row: a Montgomery product each
+# the constraint program (quotient kernels) a row: a Montgomery product each
 # mul, an add or subtract with its select each add/sub (IADD3, compare,
-# select), a negation two, a fold (acc * alpha in the quartic extension:
-# 16 Montgomery products, their sums, the W multiples, four reductions, the
-# add of x) about 40, and the last four products by 1/zeroifier
+# select), a negation two. A fold adds x * alpha^k to the quartic
+# accumulator, k from a table: two folds share each coordinate's
+# reduction, so a coordinate of a pair is two wide multiply-adds, one
+# reduction (a product less its wide multiply) and one add: 24 a fold.
+# The last four products by 1/zeroifier. The selectors, where the program
+# reads them: the coset point (one product of two table words),
+# is_transition a subtract; is_first_row and is_last_row a subtract each,
+# then inverted in one batch over the coset (Montgomery's trick: three
+# products a row each, and one inverse, 30 squares and 11 products by
+# Fermat, for the whole coset; 24 instructions a row cost less time than
+# reading a precomputed word, 4 bytes), and each times zh (a table word).
 OPS_ADD = 3
 OPS_NEG = 2
-OPS_FOLD = 40
-
+OPS_FOLD = 4 * (2 + (OPS_MONT_MUL - 1) + OPS_ADD) // 2
+OPS_BATCH_INVERSE = 3 * OPS_MONT_MUL
+OPS_INVERSE = 41 * OPS_MONT_MUL
 
 def bound(ops: float, nbytes: float) -> tuple[float, str, dict]:
     """(ms, what bounds it, both times in ms): the larger of the two
@@ -361,15 +383,24 @@ def matmul_bound(log_r: int, b: int, with_tw: bool) -> tuple[float, str, dict]:
     return times[by], "bytes" if by == "bytes" else "operations", times
 
 
-def quotient_bound(counts: dict, m: int, width: int) -> tuple[float, str, dict]:
-    """The quotient kernel over an (m, width) coset for a program of
-    `counts` instructions: its field operations at the issue rate (OPS_*
-    above), and the bytes: the coset, three selectors and 1/zeroifier read
-    once, the (m, 4) quotient written once."""
+def quotient_bound(counts: dict, selectors: set, m: int, width: int) -> tuple[float, str, dict]:
+    """The quotient kernels over an (m, width) coset for a program of
+    `counts` instructions that reads `selectors` (SEL_* indices): its field
+    operations and the selectors' at the issue rate (OPS_* above), and the
+    bytes: the coset read once, the (m, 4) quotient written once. The
+    values carried across cuts are not the function's work: they stay out."""
+    from tapstark_torch.air.program import SEL_FIRST, SEL_LAST, SEL_TRANSITION
+
     per_row = (counts["mul"] * OPS_MONT_MUL + (counts["add"] + counts["sub"]) * OPS_ADD + counts["neg"] * OPS_NEG
                + counts["fold"] * OPS_FOLD + 4 * OPS_MONT_MUL)
-    return bound(m * per_row, 4 * m * (width + 4 + 4))
-
+    if selectors:  # the coset point
+        per_row += OPS_MONT_MUL
+    if SEL_TRANSITION in selectors:
+        per_row += OPS_ADD
+    inverted = len(selectors & {SEL_FIRST, SEL_LAST})  # each a denominator, its batched inverse, a product by zh
+    per_row += inverted * (OPS_ADD + OPS_BATCH_INVERSE + OPS_MONT_MUL)
+    return bound(m * per_row + (OPS_INVERSE if inverted else 0), 4 * m * (width + 4))
+    return bound(m * per_row, 4 * m * (width + 4))
 
 # Kernels that must build without spilling (ptxas's report): the SHA-256
 # kernels and the two DIT and two DIF kernels, each at its 64-register cap,
@@ -803,11 +834,11 @@ def run_counted(dev, fn):
     peak, and returns (fn's result, the counts read just after)."""
     from tapstark_torch.air import program
     from tapstark_torch.hashes import sha256_device
-    from tapstark_torch.poly import cols_ntt, cuda_ntt
+    from tapstark_torch.poly import cols_ntt, cuda_ntt, ntt
     from tapstark_torch.poly import matmul_ntt as mm
     from tapstark_torch.utils import profiling
 
-    modules = (cuda_ntt, cols_ntt, sha256_device, mm, program)
+    modules = (cuda_ntt, cols_ntt, sha256_device, mm, program, ntt)
     profiling.reset()
     profiling.enable()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -949,9 +980,39 @@ def run_blake3(dev, cfg: dict, frozen, name: str, check: bool = True) -> dict:
     return launches
 
 
+def check_bitrev_cols(dev, stats: dict) -> None:
+    """The coset gather by columns against its plain version (the row
+    gather, then a transpose) at every BITREV_SHAPES entry, word for word;
+    timed against its bound (the words read once and written once) at the
+    provers' shapes, with one index_select of the LDE's transpose as the
+    library time at the first."""
+    from tapstark_torch.poly import ntt
+    from tapstark_torch.poly.powers import bitrev_indices_dev
+
+    rng = np.random.default_rng(9)
+    for rows, width, m in BITREV_SHAPES:
+        mat = _mont_on(dev, rng, rows, width)
+        where = f"{m} of {rows} rows x {width}"
+        run = lambda: ntt.bit_reverse_cols(mat, m)  # noqa: E731
+        plain = lambda: ntt.bit_reverse_cols_plain(mat, m)  # noqa: E731
+        got = run()
+        if got.stride() != (1, m):
+            raise AssertionError(f"bit_reverse_cols at {where}: strides {got.stride()}, not (1, {m})")
+        err = compare("bit_reverse_cols", got, plain(), where)
+        timed = m > 1 << 10
+        record(stats, "bit_reverse_cols", err, run, plain, where, bound(0, 8 * m * width) if timed else None)
+        if (rows, width, m) == BITREV_SHAPES[0]:
+            rev = bitrev_indices_dev(m.bit_length() - 1, dev)
+            lib_ms = median_ms(lambda: torch.index_select(mat[:m].t(), 1, rev), 20)
+            stats["bit_reverse_cols"]["library_ms"] = lib_ms
+            print(f"library: torch.index_select of the LDE's transpose at {where}: {lib_ms:.4f} ms", flush=True)
+        del mat, got
+
+
 def quotient_case(dev, air_name: str, log_n: int, seed: int):
     """The inputs of the quotient at a prove's coset: (AIR, public values,
-    selectors, next step, random Montgomery (m, width) trace on the coset,
+    trace domain, quotient coset, random Montgomery (m, width) trace on the
+    coset laid out by columns, as the prover gives it to the kernels,
     alpha), made from `seed`."""
     from tapstark_torch.air.symbolic import get_log_quotient_degree
     from tapstark_torch.airs import Blake3SpongeChainAir, FibonacciAir, RecursionAir
@@ -966,28 +1027,62 @@ def quotient_case(dev, air_name: str, log_n: int, seed: int):
     log_q = get_log_quotient_degree(air, num_public)
     trace_domain = TwoAdicMultiplicativeCoset(log_n, 1)
     coset = trace_domain.create_disjoint_domain(1 << (log_n + log_q))
-    sels = trace_domain.selectors_on_coset(coset, dev)
-    tq = _mont_on(dev, rng, coset.size(), air.width())
+    tq = _mont_on(dev, rng, air.width(), coset.size()).t()
     pis = [F(int(v)) for v in rng.integers(0, P, num_public)]
     alpha = EF4(tuple(int(v) for v in rng.integers(0, P, 4)))
-    return air, pis, sels, 1 << log_q, tq, alpha
+    return air, pis, trace_domain, coset, tq, alpha
+
+
+def quotient_plain(air, pis, trace_domain, coset, tq, alpha):
+    """The quotient kernels' plain version: the selectors over the coset,
+    then the eager folder."""
+    from tapstark_torch.air import program
+
+    sels = trace_domain.selectors_on_coset(coset, tq.device)
+    return program.quotient_eager(air, pis, sels, coset.size() // trace_domain.size(), tq, alpha)
+
+
+_printed: set = set()
+
+
+def build_quotient(air, num_public: int):
+    """Generate and build the AIR's quotient kernels (once a process) and
+    print, per program: segments, instructions, the values live at each
+    cut, each segment's registers and spills, the build's seconds."""
+    from tapstark_torch.air import program
+
+    kernels = program.build(air, num_public)
+    prog, segs = program.program_for(air, num_public), kernels.plan.segments
+    if kernels.path not in _printed:
+        _printed.add(kernels.path)
+        print(f"quotient program {prog.name} ({air.width()} columns): {len(prog.code)} instructions {prog.counts}, "
+              f"S {program.SEGMENT_INSTRUCTIONS}, {len(segs)} segments, live-buffer rows {kernels.plan.live_rows}, built "
+              f"{kernels.built} in {kernels.seconds:.2f} s", flush=True)
+        for k, (sg, px) in enumerate(zip(segs, kernels.ptxas)):
+            print(f"  segment {k}: instructions [{sg.start}, {sg.stop}), {len(sg.loads)} loaded, {len(sg.stores)} "
+                  f"stored, {sg.live_out} live at the cut after it, {sg.folds} folds; {px['registers']} "
+                  f"registers, spill {px['spill_stores']} / {px['spill_loads']} bytes (stores / loads)"
+                  + (f"; nvcc {px['nvcc_seconds']:.1f} s" if "nvcc_seconds" in px else ""), flush=True)
+    return kernels
 
 
 def check_quotient_kernel(dev, stats: dict) -> None:
-    """The quotient kernel against its plain version (the eager folder) at
-    every QUOTIENT_SHAPES entry, word for word, on random cosets: the
-    kernel's median CUDA-event time of 10, the eager folder's of 3 (of 1
-    on the 1548-column AIR: about 1.3 million launches), the bound."""
+    """The quotient kernels against their plain version (the selectors and
+    the eager folder) at every QUOTIENT_SHAPES entry, word for word, on
+    random cosets: the kernels' median CUDA-event time of 10 (all the
+    segments of a call), the plain version's of 3 (of 1 on the 1548-column
+    AIR: about 1.3 million launches), the bound."""
     from tapstark_torch.air import program
 
     for i, (what, air_name, log_n) in enumerate(QUOTIENT_SHAPES):
-        air, pis, sels, step, tq, alpha = quotient_case(dev, air_name, log_n, 20 + i)
-        run = lambda: program.quotient_program(air, pis, sels, step, tq, alpha)  # noqa: E731
+        air, pis, trace_domain, coset, tq, alpha = quotient_case(dev, air_name, log_n, 20 + i)
+        kernels = build_quotient(air, len(pis))
+        run = lambda: program.quotient_program(air, pis, trace_domain, coset, tq, alpha)  # noqa: E731
         plain_times = []
         for _ in range(1 if air.width() > 1000 else 3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            want = program.quotient_eager(air, pis, sels, step, tq, alpha)
+            want = quotient_plain(air, pis, trace_domain, coset, tq, alpha)
             torch.cuda.synchronize()
             plain_times.append(1e3 * (time.perf_counter() - t0))
         m, width = tq.shape
@@ -995,14 +1090,14 @@ def check_quotient_kernel(dev, stats: dict) -> None:
         err = compare("quotient_program", run(), want, where)
         ms = median_ms(run, 10)
         prog = program.program_for(air, len(pis))
-        bnd = quotient_bound(prog.counts, m, width)
+        bnd = quotient_bound(prog.counts, set(kernels.plan.selectors), m, width)
         s = stats.setdefault("quotient_program", {"max_abs_err": 0, "shapes": []})
         s["max_abs_err"] = max(s["max_abs_err"], err)
         s["shapes"].append({"at": where, "ms": ms, "plain_ms": statistics.median(plain_times),
-                            "bound_ms": bnd[0], "bound_by": bnd[1]})
-        print(f"kernel quotient_program {where} ({len(prog.code)} instructions {prog.counts}, {prog.slots} slots, "
-              f"{program.chunk_threads(m, prog.slots)} threads): equal, {ms:.4f} ms, plain "
-              f"{statistics.median(plain_times):.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}) = max("
+                            "bound_ms": bnd[0], "bound_by": bnd[1], "segments": len(kernels.plan.segments)})
+        print(f"kernel quotient_program {where} ({len(prog.code)} instructions {prog.counts}, "
+              f"{len(kernels.plan.segments)} segments, selectors {sorted(kernels.plan.selectors)}): equal, "
+              f"{ms:.4f} ms, plain {statistics.median(plain_times):.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}) = max("
               + ", ".join(f"{k} {v:.4f}" for k, v in bnd[2].items()) + ")", flush=True)
         del tq, want
 
@@ -1047,6 +1142,8 @@ def kernel_rows(stats: dict, path_launches: dict) -> list:
             row["forms"] = forms
         if name == "lde_forward":  # K2 runs on K3's two DIT kernels: their launches on its path
             row["kernels"] = {k: counts[k] for k in ("dit_cols.first", "dit_cols.cols")}
+        if name == "quotient_program":  # the kernels' source is generated per AIR around `source`
+            row["generator"] = "tapstark_torch/air/codegen.py"
         if name == "lde_inverse":  # K1 runs on K4's two DIF kernels: their launches on its path
             row["kernels"] = {k: counts[k] for k in ("dif_cols.cols", "dif_cols.last")}
         rows.append(row)
@@ -1089,12 +1186,20 @@ def main() -> int:
     check_cols_kernels(dev, stats)
     check_matmul_kernel(dev, stats)
     check_sha_kernels(dev, stats)
+    check_bitrev_cols(dev, stats)
 
     phase("commits: card vs host engine")
     check_commits_on_card(dev)
 
     phase("lde routes: blocks 2^22 and limb matmul 2^20 vs fused")
     path_launches = {"matmul lde 2^20": check_lde_routes(dev)}
+
+    phase("quotient kernels: generate and build each AIR's program before its timed prove")
+    from tapstark_torch.airs import Blake3SpongeChainAir, FibonacciAir, RecursionAir
+
+    segments = {name: len(build_quotient(air, num_public).plan.segments)
+                for name, air, num_public in (("fibonacci", FibonacciAir(), 3), ("wide row", RecursionAir(), 12),
+                                              ("blake3 sponge", Blake3SpongeChainAir(), 16))}
 
     phase("golden proof on cuda, and its script verifier")
     run = prove_fibonacci(3, 2, 28, 8, dev, emit=True)
@@ -1116,9 +1221,10 @@ def main() -> int:
         if launches[name] == 0:
             raise AssertionError(f"{name} was never launched on the north-star path: {launches}")
     # each of the two LDEs: lde_inverse on the two DIF kernels, lde_forward on the two DIT kernels
+    # and every segment of the AIR's quotient program once
     expect_launches("north star", launches, {"lde_inverse": 2, "dif_cols.cols": 2, "dif_cols.last": 2,
                                              "lde_forward": 2, "dit_cols.first": 2, "dit_cols.cols": 2,
-                                             "quotient_program": 1})
+                                             "quotient_program": segments["fibonacci"], "bit_reverse_cols": 1})
 
     phase("2^22 prove on cuda (blocks LDE route)")
     launches = path_launches["prove 2^22"] = run_prove("blocks route", dev, BLOCKS_PROVE, PROOF_2_22)
@@ -1130,7 +1236,8 @@ def main() -> int:
         raise AssertionError(f"the fused LDE kernels ran on the 2^22 path: {launches}")
     # each of the two LDEs: the blocks route's four launches
     expect_launches("2^22", launches, {"dif_cols.cols": 2, "dif_cols.last": 2, "dit_cols.first": 2,
-                                       "dit_cols.cols": 2, "quotient_program": 1})
+                                       "dit_cols.cols": 2, "quotient_program": segments["fibonacci"],
+                                       "bit_reverse_cols": 1})
 
     phase("wide row on cuda: prove, verify, emit the script verifier")
     launches = path_launches["wide row"] = run_wide_row(dev)
@@ -1141,18 +1248,19 @@ def main() -> int:
     # the trace's and the one quotient chunk's LDE, each on the fused route
     expect_launches("wide row", launches, {"lde_inverse": 2, "dif_cols.cols": 2, "dif_cols.last": 2,
                                            "lde_forward": 2, "dit_cols.first": 2, "dit_cols.cols": 2,
-                                           "quotient_program": 1})
+                                           "quotient_program": segments["wide row"], "bit_reverse_cols": 1})
 
     phase("blake3 sponge chain on cuda: 1024 compressions (the flagship), 64 (the JAX package's proof)")
     launches = path_launches["blake3 sponge"] = run_blake3(dev, BLAKE3, BLAKE3_PROOF, "blake3 sponge")
     for name in ("lde_inverse", "lde_forward", "dit_cols.first", "dit_cols.cols", "dif_cols.cols", "dif_cols.last",
-                 "tapleaf_subtrees", "tapbranch_levels", "quotient_program"):
+                 "tapleaf_subtrees", "tapbranch_levels", "quotient_program", "bit_reverse_cols"):
         if launches[name] == 0:
             raise AssertionError(f"{name} was never launched on the flagship's path: {launches}")
-    # the trace's and the two quotient chunks' LDEs (2^16 rows, the fused route), one quotient launch
+    # the trace's and the two quotient chunks' LDEs (2^16 rows, the fused route), each quotient segment once
     expect_launches("blake3 sponge", launches, {"lde_inverse": 3, "dif_cols.cols": 3, "dif_cols.last": 3,
                                                 "lde_forward": 3, "dit_cols.first": 3, "dit_cols.cols": 3,
-                                                "quotient_program": 1})
+                                                "quotient_program": segments["blake3 sponge"],
+                                                "bit_reverse_cols": 1})
     run_blake3(dev, BLAKE3_64, BLAKE3_64_PROOF, "blake3 sponge 64", check=False)  # the JAX package's bytes
     check_quotient_kernel(dev, stats)
 

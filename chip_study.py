@@ -1,7 +1,7 @@
 """Longer measurements of the PyTorch/CUDA port on one GPU.
 
     python3 chip_study.py [kernels | sass | routes | device | suffix | busy | peak | wide | fri_tail | quotient
-                           | blake3 ...]
+                           | segments | spans | gather | blake3 ...]
 
 `chip_smoke.py` checks the port; this script measures what it leaves
 out, for PERF.md (every phase, or the phases named):
@@ -23,9 +23,20 @@ out, for PERF.md (every phase, or the phases named):
   items and the span that sets its peak;
 - one FRI layer (fold and commit) on the card and on the host at the sizes
   around the host-tail switch (`fri/prover.py HOST_TAIL_MAX_HALF`);
-- the quotient kernel (the AIR's constraint program) and the eager
-  folder at each prove's quotient coset (chip_smoke.py QUOTIENT_SHAPES):
-  each one's CUDA-event time and own device time under `torch.profiler`;
+- the quotient kernels (the AIR's constraint program, generated per AIR
+  as straight-line segments) and their plain version (the selectors and
+  the eager folder) at each prove's quotient coset (chip_smoke.py
+  QUOTIENT_SHAPES): each one's CUDA-event time and own device time under
+  `torch.profiler`, the kernels' summed over the segments;
+- the segment length S (air/program.py SEGMENT_INSTRUCTIONS): the
+  flagship's and the wide row's programs' build seconds and their
+  kernels' device time at the provers' cosets, for each S of
+  SEGMENT_STUDY;
+- each prove's spans warm (2^20, 2^22, the wide row, the flagship), a
+  second prove under chip_smoke.py's counters;
+- the gather that gives the quotient its coset (`get_evaluations_on_domain`):
+  by columns (the card's kernel) against by rows and against one
+  index_select, at the provers' cosets;
 - the flagship (chip_smoke.py BLAKE3): busy share, largest items and the
   span that sets its peak; its proof's bytes go to
   `chiprun_out/blake3_proof.bin`, for `tools/freeze_port_references.py
@@ -38,6 +49,7 @@ exits at once.
 
 from __future__ import annotations
 
+import os
 import statistics
 import subprocess
 import sys
@@ -73,11 +85,13 @@ def lde_routes(dev) -> None:
         del evals
 
 
-def _device_line(name: str, fn, calls: int = 20, only: str = "") -> None:
+def _device_line(name: str, fn, calls: int = 20, only: str = "", once: bool = False) -> None:
     """fn's CUDA-event time (median of `calls`) and, over `calls` calls under
     torch.profiler after a warm-up, the device time of each kernel it
     launches (mean a launch, launches a call), those whose name holds
-    `only`, and all kernels' total a call."""
+    `only`, and all kernels' total a call; with `once` (each of those
+    kernels launches once a call), also the sum of their means, which
+    holds where the profiler drops some of a long run's events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -88,9 +102,12 @@ def _device_line(name: str, fn, calls: int = 20, only: str = "") -> None:
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     total = sum(e.self_device_time_total for e in kernels) / calls / 1e3
-    print(f"{name}: event {event_ms:.4f} ms; device total {total:.4f} ms a call; " + ", ".join(
+    mine = [e for e in kernels if only in e.key]
+    summed = f"; {only} kernels {sum(e.self_device_time_total / e.count for e in mine) / 1e3:.4f} ms a call" if once \
+        else ""
+    print(f"{name}: event {event_ms:.4f} ms; device total {total:.4f} ms a call{summed}; " + ", ".join(
         f"{_kernel_name(e.key)} {e.self_device_time_total / e.count / 1e3:.4f} ms x{e.count / calls:g}"
-        for e in kernels if only in e.key), flush=True)
+        for e in mine), flush=True)
 
 
 def device_times(dev) -> None:
@@ -381,12 +398,13 @@ def fri_tail(dev) -> None:
 
 
 def quotient(dev) -> None:
-    """The quotient kernel and the eager folder (its plain version) at each
-    QUOTIENT_SHAPES entry (random cosets, as chip_smoke.py makes them),
-    each under torch.profiler after a warm-up (`_device_line`): the
-    kernel's own device time a launch over 10 calls; the eager folder's
-    CUDA-event time and the device time of all its kernels, over 3 calls
-    (1 on the 1548-column AIR: about 1.3 million launches); the bound."""
+    """The quotient kernels and their plain version at each QUOTIENT_SHAPES
+    entry (random cosets, as chip_smoke.py makes them), each under
+    torch.profiler after a warm-up (`_device_line`): the kernels' own
+    device time over 10 calls (each segment a launch, and their sum); the
+    plain version's CUDA-event time and the device time of all its kernels,
+    over 3 calls (1 on the 1548-column AIR: about 1.3 million launches);
+    the bound."""
     from tapstark_torch.air import program
 
     # every kernel first: after the eager folder's trace of ~1.3 million
@@ -394,18 +412,139 @@ def quotient(dev) -> None:
     # kernel on that card
     for eager in (False, True):
         for i, (what, air_name, log_n) in enumerate(smoke.QUOTIENT_SHAPES):
-            air, pis, sels, step, tq, alpha = smoke.quotient_case(dev, air_name, log_n, 20 + i)
+            air, pis, td, qd, tq, alpha = smoke.quotient_case(dev, air_name, log_n, 20 + i)
             m, width = tq.shape
             if eager:
-                _device_line(f"eager folder {what} ({m} x {width})",
-                             lambda: program.quotient_eager(air, pis, sels, step, tq, alpha),
-                             1 if width > 1000 else 3, "quotient")
+                _device_line(f"plain version {what} ({m} x {width})",
+                             lambda: smoke.quotient_plain(air, pis, td, qd, tq, alpha), 1 if width > 1000 else 3)
             else:
-                _device_line(f"quotient_program {what} ({m} x {width})",
-                             lambda: program.quotient_program(air, pis, sels, step, tq, alpha), 10, "quotient")
+                kernels = smoke.build_quotient(air, len(pis))
+                _device_line(f"quotient_program {what} ({m} x {width}, {len(kernels.plan.segments)} segments)",
+                             lambda: program.quotient_program(air, pis, td, qd, tq, alpha), 10, "quotient_segment",
+                             once=True)
                 prog = program.program_for(air, len(pis))
-                print(f"bound {what}: {smoke.quotient_bound(prog.counts, m, width)[0]:.4f} ms", flush=True)
+                bnd = smoke.quotient_bound(prog.counts, set(kernels.plan.selectors), m, width)
+                print(f"bound {what}: {bnd[0]:.4f} ms ({bnd[1]})", flush=True)
             del tq
+
+
+SEGMENT_STUDY = [500, 1000, 2000]
+
+
+def segments(dev) -> None:
+    """For each S of SEGMENT_STUDY: the flagship's and the wide row's
+    programs built anew (generation, nvcc of every segment at once, link,
+    load: seconds), their registers and spills, and their device time at
+    the provers' cosets (`_device_line`, 10 calls)."""
+    from tapstark_torch.air import codegen, program
+
+    print(f"CPUs: os.cpu_count() {os.cpu_count()}, affinity {len(os.sched_getaffinity(0))}", flush=True)
+    cases = []
+    for i in (0, 3):  # the flagship, the wide row
+        what, air_name, log_n = smoke.QUOTIENT_SHAPES[i]
+        case = smoke.quotient_case(dev, air_name, log_n, 20 + i)
+        cases.append((what, case, smoke.quotient_plain(*case)))
+    for S in SEGMENT_STUDY:
+        for what, (air, pis, td, qd, tq, alpha), want in cases:
+            kernels = codegen.kernels(program.program_for(air, len(pis)), S)
+            pl = kernels.plan
+            print(f"S {S} {what}: {len(pl.segments)} segments, built {kernels.built} in {kernels.seconds:.2f} s; live "
+                  f"at the cuts {[sg.live_out for sg in pl.segments[:-1]]}; registers "
+                  f"{[px['registers'] for px in kernels.ptxas]}; spill stores "
+                  f"{[px['spill_stores'] for px in kernels.ptxas]} bytes; nvcc seconds a segment "
+                  f"{[round(px.get('nvcc_seconds', 0), 1) for px in kernels.ptxas]}", flush=True)
+            run = lambda: program.launch_segments(kernels, air, pis, td, qd, tq, alpha)  # noqa: E731
+            smoke.compare(f"quotient_program S={S}", run(), want, what)
+            _device_line(f"quotient_program S={S} {what}", run, 10, "quotient_segment", once=True)
+
+
+GATHER_NARROW_SHAPES = [(1 << 22, 8, 1 << 20)]  # beside BITREV_SHAPES: the narrow form at its widest
+
+
+def _tile_only_gather():
+    """`csrc/bitrev_cols.cu` built with its narrow form off
+    (TAPSTARK_BITREV_NARROW_MAX=0): its entry, the tile kernel at every
+    width."""
+    import ctypes
+
+    from tapstark_torch import _build
+
+    so_path = os.path.join(_build.BUILD_DIR, "libbitrev_tile_only.so")
+    _build.compile_library([os.path.join(_build.CSRC, "bitrev_cols.cu")], so_path,
+                           ["-DTAPSTARK_BITREV_NARROW_MAX=0"])
+    fn = ctypes.CDLL(so_path).tapstark_bitrev_cols
+    fn.argtypes, fn.restype = _build.SIGNATURES["tapstark_bitrev_cols"]
+    return fn
+
+
+def gather(dev) -> None:
+    """`get_evaluations_on_domain`'s gather at each prove's coset
+    (chip_smoke.py BITREV_SHAPES, the golden's left out, and
+    GATHER_NARROW_SHAPES): the card's by columns (`bit_reverse_cols`'
+    kernel) against the row gather (bit_reverse_rows, the JAX package's)
+    and one index_select of the LDE's transpose, and at up to 8 columns
+    its tile kernel against its narrow form; CUDA-event medians of 10, in
+    turns; all equal."""
+    from tapstark_torch.poly import ntt
+    from tapstark_torch.poly.powers import bitrev_indices_dev
+
+    tile_only = _tile_only_gather()
+    rng = np.random.default_rng(9)
+    for lde_rows, width, m in [*smoke.BITREV_SHAPES[:-1], *GATHER_NARROW_SHAPES]:
+        lde = smoke._mont_on(dev, rng, lde_rows, width)
+        rev = bitrev_indices_dev(m.bit_length() - 1, dev)
+        fns = {"rows": lambda: ntt.bit_reverse_rows(lde[:m]), "kernel": lambda: ntt.bit_reverse_cols(lde, m),
+               "index_select": lambda: torch.index_select(lde[:m].t(), 1, rev).t()}
+        if width <= 8:
+            def tile():
+                out = torch.empty((width, m), dtype=torch.int32, device=dev)
+                err = tile_only(lde.data_ptr(), width, m.bit_length() - 1, out.data_ptr(),
+                                torch.cuda.current_stream(dev).cuda_stream)
+                if err != 0:
+                    raise RuntimeError(f"tile-only gather: CUDA error {err}")
+                return out.t()
+
+            fns["tile kernel"] = tile
+        for name in fns:
+            if name != "rows":
+                smoke.compare("gather", fns[name](), fns["rows"](), f"{name}, {m} x {width}")
+        times = {name: [] for name in fns}
+        for name in [*fns, *reversed(fns)]:
+            times[name].append(smoke.median_ms(fns[name], 10))
+        print(f"gather {m} x {width} (LDE {lde_rows} rows): " + ", ".join(f"{k} {v} ms" for k, v in times.items()),
+              flush=True)
+        del lde
+
+
+def _prove_fibonacci(cfg: dict):
+    """A Fibonacci prove without its verify (chip_smoke.py's configs), for
+    `spans`: returns its seconds."""
+    from tapstark_torch.airs import FibonacciAir, generate_fibonacci_trace
+    from tapstark_torch.challenger import BfChallenger
+    from tapstark_torch.field import F
+    from tapstark_torch.stark import prove
+
+    def run(dev) -> float:
+        pcs = smoke.make_config(cfg["num_queries"], cfg["log_blowup"], cfg["pow_bits"], dev)
+        trace = generate_fibonacci_trace(0, 1, 1 << cfg["log_n"])
+        t0 = time.perf_counter()
+        prove(pcs, FibonacciAir(), BfChallenger(), trace, [F(0), F(1), F(int(trace[-1, 1]))])
+        return time.perf_counter() - t0
+
+    return run
+
+
+def spans(dev) -> None:
+    """Each prove's spans warm: 2^20, 2^22, the wide row and the flagship,
+    each proved once to warm up (kernels built, the AIR's program recorded
+    and, where it is generated, built) and once under chip_smoke.py
+    run_counted (spans, launches, peak device memory)."""
+    cases = [("2^20", _prove_fibonacci(smoke.NORTH_STAR)), ("2^22", _prove_fibonacci(smoke.BLOCKS_PROVE)),
+             ("wide row", prove_wide), ("flagship", prove_blake3)]
+    for name, run in cases:
+        run(dev)
+        seconds, _ = smoke.run_counted(dev, lambda: run(dev))
+        print(f"spans {name}: warm prove {seconds:.3f} s", flush=True)
 
 
 _flagship: dict = {}
@@ -457,7 +596,11 @@ PHASES = {  # name: (title, what runs); `python3 chip_study.py [name ...]` runs 
     "wide": ("the wide row's prove: busy share and peak device memory, by span",
              lambda dev: [busy_share(dev, "wide row", prove_wide), peak_memory(dev, "wide row", prove_wide)]),
     "fri_tail": ("fri host tail: one layer on the card vs on the host", fri_tail),
-    "quotient": ("the quotient kernel's device time and the eager folder's, at each prove's coset", quotient),
+    "quotient": ("the quotient kernels' device time and their plain version's, at each prove's coset", quotient),
+    "segments": ("the segment length S: build seconds and device time of the flagship's and wide row's programs",
+                 segments),
+    "gather": ("the quotient's coset gather: by columns against by rows", gather),
+    "spans": ("each prove's spans, warm: 2^20, 2^22, the wide row, the flagship", spans),
     "blake3": ("the flagship's prove: busy share and peak device memory, by span; its proof's bytes",
                lambda dev: [busy_share(dev, "blake3 sponge", prove_blake3),
                             peak_memory(dev, "blake3 sponge", prove_blake3)]),

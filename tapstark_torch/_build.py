@@ -7,11 +7,14 @@ hash of the sources and headers, so an edited file rebuilds), and bound
 with ctypes. No PyTorch headers are compiled, which keeps the build to
 seconds. ptxas reports each kernel's registers and spills; the report is
 kept beside the library and read back with it (`build_info["ptxas"]`).
-A failed build raises.
+The quotient's kernels are generated per AIR (`air/codegen.py`) and built
+by `compile_library` into libraries of their own, recorded under
+`build_info["quotient"]`. A failed build raises.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import glob
 import hashlib
@@ -67,8 +70,7 @@ SIGNATURES = {
     "tapstark_dit_first": ([_ptr, _i64, _i64, *[_ptr] * 6, _i32, _i32, _i32, _i32, _i32, _ptr], _i32),
     "tapstark_matmul_constants": ([_ptr], _i32),
     "tapstark_mod_matmul": ([_ptr, _ptr, _ptr, _i64, _ptr, _i32, _i64, _i32, _ptr], _i32),
-    "tapstark_quotient_program": ([_ptr, _i32, _ptr, _ptr, _ptr, _i64, _i32, _i64, _ptr, _ptr, _u32, _u32, _u32,
-                                   _u32, _ptr, _i64, _ptr, _ptr], _i32),
+    "tapstark_bitrev_cols": ([_ptr, _i32, _i32, _ptr, _ptr], _i32),
 }
 
 
@@ -110,21 +112,24 @@ def _check_constants(lib: ctypes.CDLL) -> None:
         raise RuntimeError("column-NTT kernel's largest log R differs from cols_ntt.MAX_LOG_R")
 
 
-def _compile_library(srcs: list[str], so_path: str) -> None:
-    """nvcc each source (one process each, all at once), link them into
-    so_path; what ptxas reported goes to `so_path`.ptxas.txt."""
+def compile_library(srcs: list[str], so_path: str, flags: list[str] = ()) -> list[float]:
+    """nvcc each source (one process each, all at once, with `flags` after
+    NVCC_FLAGS), link them into so_path; what ptxas reported goes to
+    `so_path`.ptxas.txt. Returns each source's nvcc seconds."""
     objs = [f"{so_path}.{os.getpid()}.{i}.o" for i in range(len(srcs))]
-    procs = [
-        subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", o, src],
-                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for src, o in zip(srcs, objs)
-    ]
-    outs = [p.communicate() for p in procs]
+
+    def nvcc(src: str, obj: str):
+        t0 = time.perf_counter()
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, *flags, "-c", "-o", obj, src], capture_output=True, text=True)
+        return proc, time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(max_workers=len(srcs)) as pool:
+        runs = list(pool.map(nvcc, srcs, objs))
     ptxas = ""
-    for src, p, (out, err) in zip(srcs, procs, outs):
+    for src, (p, _) in zip(srcs, runs):
         if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src} ({p.returncode}):\n{err}")
-        ptxas += out + err
+            raise RuntimeError(f"nvcc failed on {src} ({p.returncode}):\n{p.stderr}")
+        ptxas += p.stdout + p.stderr
     tmp = f"{so_path}.{os.getpid()}.tmp"
     proc = subprocess.run([_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", tmp, *objs], capture_output=True, text=True)
     for o in objs:
@@ -135,6 +140,7 @@ def _compile_library(srcs: list[str], so_path: str) -> None:
         f.write(ptxas)
     os.replace(f"{tmp}.ptxas.txt", f"{so_path}.ptxas.txt")  # before the library: it implies the report
     os.replace(tmp, so_path)
+    return [seconds for _, seconds in runs]
 
 
 def load_library() -> ctypes.CDLL:
@@ -153,7 +159,7 @@ def load_library() -> ctypes.CDLL:
     t0 = time.perf_counter()
     built = not os.path.exists(so_path)
     if built:
-        _compile_library(srcs, so_path)
+        compile_library(srcs, so_path)
     with open(f"{so_path}.ptxas.txt") as f:
         ptxas = f.read()
     lib = ctypes.CDLL(so_path)

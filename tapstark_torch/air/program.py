@@ -1,12 +1,12 @@
-"""The constraint program: an AIR's quotient as one kernel launch.
+"""The constraint program: an AIR's quotient as generated CUDA kernels.
 
 The JAX package evaluates the constraint folder over the whole quotient
 coset under one jit (`tapstark/stark/prover.py` quotient_values), because
 evaluating it eagerly dispatches a device program per field operation: the
 1548-column Blake3 AIRs run about 57,000 base operations and 3,500 folds a
 row. The port records the AIR's constraints once, as a flat program, and
-one CUDA kernel (`csrc/quotient.cuh` `quotient_program_kernel`) interprets
-it for every row of the coset.
+`air/codegen.py` turns the program into straight-line CUDA C++ kernels,
+built at its first use on the card (`csrc/quotient.cuh`).
 
 Recording. `ProgramRecorder` is an `AirBuilder` whose values are `Node`s:
 `air.eval` runs on them once. The leaves are the trace's local and next
@@ -17,51 +17,54 @@ acc = acc·alpha + x. Equal nodes are one node (hash-consing), exact
 identities are applied (x·1, x+0, x-0, x·0, constant operands folded):
 the field ops are exact, so none of this changes a word of the result.
 
-Emission. The nodes the folds reach are linearised in eval order. A leaf
-is not an instruction: it is an operand, read where it is used (the `K_` kinds).
-Every interior value gets a slot, allocated by last use (a linear scan),
-so the slot count is the live width, not the op count. The program is an
-(n, 4) int32 array of (opcode, dst slot, a, b), operands tagged by kind in
-their top bits, a table of Montgomery constants, and the slot count; it is
-cached per (AIR class, width, number of public values).
+Emission. The nodes the folds reach are linearised in eval order, in SSA
+form: instruction i defines value i (a fold defines none). The program is
+an (n, 3) int32 array of (opcode, a, b), operands tagged by kind in their
+top bits (a value, a local or next column, a public value, a constant of
+the table, a selector), and a table of Montgomery constants; it is cached
+per (AIR class, width, number of public values).
 
 Plain version. On a CPU tensor `quotient_program` runs the eager
-`ProverConstraintFolder`, the kernel's plain version (which the card path
-never runs); on a CUDA tensor it launches the kernel or raises. An AIR
-whose constraints hold an extension-field value (none of the repo's does)
-raises NotImplementedError: the kernel folds base-field constraints only.
+`ProverConstraintFolder`, the kernels' plain version (which the card path
+never runs); on a CUDA tensor it launches the generated segments or
+raises. An AIR whose constraints hold an extension-field value (none of
+the repo's does) raises NotImplementedError: the kernels fold base-field
+constraints only.
 """
 
 from __future__ import annotations
 
-import heapq
-from dataclasses import dataclass, field
+import ctypes
+import functools
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from ..field.constants import P, R_MOD_P
+from ..field.constants import EXT_W, P, R_MOD_P
 from ..field.device import ef_mul_base
 from ..field.scalar import EF4, F
 from . import AirBuilder, TwoRowMatrixView
 from .folders import ProverConstraintFolder
 
-# opcodes (csrc/quotient.cuh kOpAdd ...)
+# opcodes
 OP_ADD, OP_SUB, OP_MUL, OP_NEG, OP_FOLD = range(5)
-# operand kinds, in the operand's bits KIND_SHIFT and up (csrc/quotient.cuh)
-K_SLOT, K_LOCAL, K_NEXT, K_PUBLIC, K_CONST, K_SEL = range(6)
+# operand kinds, in the operand's bits KIND_SHIFT and up
+K_VAL, K_LOCAL, K_NEXT, K_PUBLIC, K_CONST, K_SEL = range(6)
 KIND_SHIFT = 24
-# selector indices of a K_SEL operand: the kernel's `sel` rows
+# selector indices of a K_SEL operand
 SEL_FIRST, SEL_LAST, SEL_TRANSITION = range(3)
+# public values a program may read (csrc/quotient.cuh kMaxPublic)
+MAX_PUBLIC = 64
 
-# The kernel keeps each thread's slots in a global scratch laid out
-# [slot][thread]; a launch runs as many threads as fit this many bytes of
-# scratch (a power of two, at most the coset's rows), each walking rows
-# t, t + threads, ... . The row chunking of the JAX package's lax.map.
-SCRATCH_BUDGET = 256 << 20
+# Instructions of one generated segment at most (S): each segment is its
+# own translation unit and kernel. nvcc's time grows faster than linearly
+# in a segment's length, and each cut costs the values live across it.
+# Chosen on the card by build time against run time (PERF.md).
+SEGMENT_INSTRUCTIONS = 1000
 
-# Launches since the last reset: one per `quotient_program` call that
-# reached the card.
+# Segment launches since the last reset: each `quotient_program` call on
+# the card launches every segment of its program once.
 launches = {"quotient_program": 0}
 
 
@@ -213,27 +216,14 @@ class ProgramRecorder(AirBuilder):
 class Program:
     """A recorded constraint program (module docstring)."""
 
-    code: np.ndarray  # (n, 4) int32: opcode, dst slot, operand a, operand b
+    name: str  # the AIR's class
+    code: np.ndarray  # (n, 3) int32: opcode, operand a, operand b
     consts: np.ndarray  # (k,) uint32 Montgomery words
-    slots: int
     counts: dict  # instructions by opcode name
-    _on_device: dict = field(default_factory=dict, repr=False)
-
-    def on(self, device) -> tuple[torch.Tensor, torch.Tensor]:
-        """(code, consts) as int32 tensors on `device`, copied once."""
-        key = str(device)
-        if key not in self._on_device:
-            consts = self.consts if len(self.consts) else np.zeros(1, np.uint32)
-            self._on_device[key] = (
-                torch.from_numpy(np.ascontiguousarray(self.code)).to(device),
-                torch.from_numpy(consts.view(np.int32)).to(device),
-            )
-        return self._on_device[key]
 
 
 def emit(rec: ProgramRecorder) -> Program:
-    """Linearise the nodes the folds reach, in eval order, and allocate
-    their slots by last use."""
+    """Linearise the nodes the folds reach, in eval order, as SSA."""
     defs = rec.defs
     live = set()
     for kind, node_id in reversed(rec.events):  # a node's event comes before every use of it
@@ -242,16 +232,11 @@ def emit(rec: ProgramRecorder) -> Program:
         elif node_id in live:
             live.update(defs[node_id][1:])
     steps = [(k, i) for k, i in rec.events if k == "fold" or i in live]
-    last_use: dict[int, int] = {}
-    for pos, (kind, node_id) in enumerate(steps):
-        reads = (node_id,) if kind == "fold" else defs[node_id][1:]
-        for r in reads:
-            last_use[r] = pos
+    if len(steps) >= 1 << KIND_SHIFT:
+        raise ValueError(f"{rec.name}: {len(steps)} instructions, more than an operand can index")
 
     consts: dict[int, int] = {}
-    slot_of: dict[int, int] = {}
-    free: list[int] = []
-    n_slots = 0
+    value_of: dict[int, int] = {}  # node id -> the instruction that defines it
 
     def operand(node_id: int) -> int:
         d = defs[node_id]
@@ -260,30 +245,21 @@ def emit(rec: ProgramRecorder) -> Program:
         if d[0] == "const":
             k = consts.setdefault(d[1], len(consts))
             return (K_CONST << KIND_SHIFT) | k
-        return (K_SLOT << KIND_SHIFT) | slot_of[node_id]
+        return (K_VAL << KIND_SHIFT) | value_of[node_id]
 
-    code = np.zeros((len(steps), 4), np.int32)
+    code = np.zeros((len(steps), 3), np.int32)
     names = {OP_ADD: "add", OP_SUB: "sub", OP_MUL: "mul", OP_NEG: "neg", OP_FOLD: "fold"}
     counts = dict.fromkeys(names.values(), 0)
     for pos, (kind, node_id) in enumerate(steps):
         if kind == "fold":
-            op, reads, dst = OP_FOLD, (node_id, node_id), 0
+            op, reads = OP_FOLD, (node_id, node_id)
         else:
             op, reads = defs[node_id][0], defs[node_id][1:]
-        a, b = operand(reads[0]), operand(reads[1])
-        for r in set(reads):  # read before the write: a dying operand's slot may take the result
-            if last_use[r] == pos and r in slot_of:
-                heapq.heappush(free, slot_of.pop(r))
-        if kind == "node":
-            if free:
-                dst = heapq.heappop(free)
-            else:
-                dst, n_slots = n_slots, n_slots + 1
-            slot_of[node_id] = dst
-        code[pos] = (op, dst, a, b)
+            value_of[node_id] = pos
+        code[pos] = (op, operand(reads[0]), operand(reads[1]))
         counts[names[op]] += 1
     table = np.array([v * R_MOD_P % P for v in consts], np.uint32)
-    return Program(code, table, n_slots, counts)
+    return Program(rec.name, code, table, counts)
 
 
 _programs: dict = {}
@@ -301,61 +277,142 @@ def program_for(air, num_public: int) -> Program:
     return prog
 
 
+def build(air, num_public: int):
+    """The AIR's generated kernels (`codegen.Kernels`) at
+    SEGMENT_INSTRUCTIONS, generated and built at their first use (once per
+    process; the library is kept in `tapstark_torch/_build/`). Raises if
+    nvcc fails."""
+    from . import codegen
+
+    return codegen.kernels(program_for(air, num_public), SEGMENT_INSTRUCTIONS)
+
+
 def quotient_eager(air, public_values, sels, next_step: int, tq: torch.Tensor, alpha: EF4) -> torch.Tensor:
-    """The kernel's plain version: the eager `ProverConstraintFolder` over
+    """The kernels' plain version: the eager `ProverConstraintFolder` over
     the whole coset, divided by the zeroifier."""
     folder = ProverConstraintFolder(tq, next_step, public_values, sels, alpha)
     air.eval(folder)
     return ef_mul_base(folder.accumulator.arr, sels.inv_zeroifier)
 
 
-def chunk_threads(m: int, slots: int) -> int:
-    """Threads of one launch: the largest power of two of at most m whose
-    [slot][thread] scratch fits SCRATCH_BUDGET."""
-    t = m
-    while t > 1 and 4 * max(slots, 1) * t > SCRATCH_BUDGET:
-        t //= 2
-    return t
+def _mont(v: int) -> int:
+    return v * R_MOD_P % P
 
 
-def quotient_program(air, public_values, sels, next_step: int, tq: torch.Tensor, alpha: EF4) -> torch.Tensor:
-    """Constraint accumulator over the coset, divided by the zeroifier, as
-    an (m, 4) Montgomery tensor: `tq` (m, width) holds the trace on the
-    coset in natural order, the next row of row i is row (i + next_step)
-    mod m, `sels` holds (m,) Montgomery selector tensors. On the card, one
-    launch of `quotient_program_kernel`; on a CPU tensor, the plain
-    version."""
+@functools.lru_cache(maxsize=None)
+def coset_tables(log_n: int, log_m: int, shift: int, device) -> torch.Tensor:
+    """The kernels' coset parameters, Montgomery words on `device`: the
+    coset's point x_i = shift·omega^i as hi[i >> log_lo]·lo[i mod
+    2^log_lo] (lo: omega^k; hi: shift·omega^(k·2^log_lo)), then the
+    2^log_q values of the trace domain's zeroifier x^n - 1 over the coset
+    (entry i mod 2^log_q) and their inverses."""
+    log_lo, log_q = log_m // 2, log_m - log_n
+    omega = F.two_adic_generator(log_m).v
+    lo = [pow(omega, k, P) for k in range(1 << log_lo)]
+    step = pow(omega, 1 << log_lo, P)
+    hi = [shift * pow(step, k, P) % P for k in range(1 << (log_m - log_lo))]
+    shift_n, omega_n = pow(shift, 1 << log_n, P), pow(omega, 1 << log_n, P)
+    zh = [(shift_n * pow(omega_n, k, P) - 1) % P for k in range(1 << log_q)]
+    words = [_mont(v) for v in lo + hi + zh + [pow(z, P - 2, P) for z in zh]]
+    return torch.tensor(np.array(words, np.uint32).view(np.int32), device=device)
+
+
+def _ext_mul(a, b):
+    """a * b in the quartic extension (x^4 = W), canonical coordinates: Python
+    ints, or numpy uint64 arrays that broadcast."""
+    a0, a1, a2, a3 = a
+    b0, b1, b2, b3 = b
+    w = EXT_W
+    return ((a0 * b0 % P + w * ((a1 * b3 % P + a2 * b2 % P + a3 * b1 % P) % P)) % P,
+            (a0 * b1 % P + a1 * b0 % P + w * ((a2 * b3 % P + a3 * b2 % P) % P)) % P,
+            (a0 * b2 % P + a1 * b1 % P + a2 * b0 % P + w * (a3 * b3 % P)) % P,
+            (a0 * b3 % P + a1 * b2 % P + a2 * b1 % P + a3 * b0 % P) % P)
+
+
+def alpha_powers(alpha: EF4, count: int) -> np.ndarray:
+    """alpha^0 .. alpha^(count - 1) as (count, 4) Montgomery words: the
+    powers the kernels' folds multiply by (csrc/quotient.cuh fold_pair).
+    Baby steps alpha^j (j < 32) and giant steps alpha^(32k) on the host,
+    then every product of the two at once."""
+    x, baby = (1, 0, 0, 0), []
+    for _ in range(min(count, 32)):
+        baby.append(x)
+        x = _ext_mul(x, alpha.as_u32_vec())
+    pows = np.array(baby, np.uint64)
+    if count > len(baby):
+        giant = [(1, 0, 0, 0)]
+        while len(giant) * len(baby) < count:
+            giant.append(_ext_mul(giant[-1], x))  # x = alpha^32
+        g = np.array(giant, np.uint64)[:, None, :]
+        pows = np.stack(_ext_mul([g[..., i] for i in range(4)], [pows[None, :, i] for i in range(4)]), axis=-1)
+    return (pows.reshape(-1, 4)[:count] * np.uint64(R_MOD_P) % np.uint64(P)).astype(np.uint32)
+
+
+@functools.lru_cache(maxsize=None)
+def _g_inv(log_n: int) -> int:
+    """The inverse of the generator of the 2^log_n trace domain, Montgomery."""
+    return _mont(pow(F.two_adic_generator(log_n).v, P - 2, P))
+
+
+def quotient_args(trace_domain, quotient_domain, public_values, tq: int, live: int, out: int, coset: int,
+                  alpha_pows: int):
+    """The kernels' arguments (`codegen.QuotientArgs`) for a coset whose
+    buffers lie at the given addresses."""
+    from .codegen import QuotientArgs
+
+    log_n, log_m = trace_domain.log_n, quotient_domain.log_n
+    if trace_domain.shift != 1 or log_n > log_m:
+        raise ValueError("quotient_program expects the natural trace domain and a coset no smaller")
+    if len(public_values) > MAX_PUBLIC:
+        raise ValueError(f"quotient_program: {len(public_values)} public values, at most {MAX_PUBLIC}")
+    return QuotientArgs(
+        tq, live, out, coset, alpha_pows, 1 << log_m, 1 << (log_m - log_n), log_m // 2, log_m - log_m // 2,
+        log_m - log_n, _g_inv(log_n),
+        (ctypes.c_uint32 * MAX_PUBLIC)(*(_mont(v.v) for v in public_values)),
+    )
+
+
+def quotient_program(air, public_values, trace_domain, quotient_domain, tq: torch.Tensor, alpha: EF4) -> torch.Tensor:
+    """Constraint accumulator over the quotient coset, divided by the
+    zeroifier, as an (m, 4) Montgomery tensor: `tq` (m, width) holds the
+    trace on the coset in natural order; the next row of row i is row (i +
+    next_step) mod m, next_step = m / n. On the card `tq` is laid out by
+    columns (strides (1, m), as `TwoAdicFriPcs.get_evaluations_on_domain`
+    gives it) and the generated segments run one after another, computing
+    the selectors themselves; on a CPU tensor, the plain version over
+    `selectors_on_coset`."""
+    next_step = 1 << (quotient_domain.log_n - trace_domain.log_n)
     if tq.device.type == "cpu":
+        sels = trace_domain.selectors_on_coset(quotient_domain, tq.device)
         return quotient_eager(air, public_values, sels, next_step, tq, alpha)
     if tq.device.type != "cuda":
         raise ValueError(f"quotient_program: no path for device {tq.device}")
-    from .._build import load_library
+    return launch_segments(build(air, len(public_values)), air, public_values, trace_domain, quotient_domain, tq,
+                           alpha)
 
+
+def launch_segments(kernels, air, public_values, trace_domain, quotient_domain, tq: torch.Tensor,
+                    alpha: EF4) -> torch.Tensor:
+    """`quotient_program` on the card through the given built segments
+    (`codegen.Kernels` of the AIR's program, at any segment length): each
+    launched in turn on the current stream; raises on a launch's error."""
     m, width = tq.shape
-    if tq.dtype != torch.int32 or not tq.is_contiguous() or width != air.width():
-        raise ValueError(f"quotient_program: expected a contiguous int32 (m, {air.width()}) tensor")
-    if m & (m - 1) or not 0 < next_step < m or width >= 1 << KIND_SHIFT or m * width >= 1 << 62:
-        raise ValueError(f"quotient_program: shape {(m, width)}, next_step {next_step} unsupported")
-    prog = program_for(air, len(public_values))
+    if tq.dtype != torch.int32 or width != air.width() or m != quotient_domain.size() or tq.stride() != (1, m):
+        raise ValueError(f"quotient_program: expected an int32 ({quotient_domain.size()}, {air.width()}) tensor "
+                         "laid out by columns (strides (1, m))")
     dev = tq.device
-    code, consts = prog.on(dev)
-    pub = torch.tensor([v.v * R_MOD_P % P for v in public_values] or [0], dtype=torch.int32, device=dev)
-    parts = (sels.is_first_row, sels.is_last_row, sels.is_transition, sels.inv_zeroifier)
-    if any(s.shape != (m,) or s.device != dev for s in parts):
-        raise ValueError("quotient_program: selectors must be (m,) tensors on the trace's device")
-    sel = torch.stack(parts[:3]).to(torch.int32)  # the kernel's (3, m) rows: SEL_FIRST, SEL_LAST, SEL_TRANSITION
-    invz = parts[3].to(torch.int32).contiguous()
-    threads = chunk_threads(m, prog.slots)
-    scratch = torch.empty(max(prog.slots, 1) * threads, dtype=torch.int32, device=dev)
+    live = torch.empty((max(kernels.plan.live_rows, 1), m), dtype=torch.int32, device=dev)
     out = torch.empty((m, 4), dtype=torch.int32, device=dev)
-    alpha_w = [v * R_MOD_P % P for v in alpha.as_u32_vec()]
+    coset = coset_tables(trace_domain.log_n, quotient_domain.log_n, quotient_domain.shift, dev)
+    pows = torch.from_numpy(alpha_powers(alpha, kernels.plan.alpha_powers).view(np.int32)).to(dev)
+    args = quotient_args(trace_domain, quotient_domain, public_values, tq.data_ptr(), live.data_ptr(),
+                         out.data_ptr(), coset.data_ptr(), pows.data_ptr())
     with torch.cuda.device(dev):
-        err = load_library().tapstark_quotient_program(
-            code.data_ptr(), len(prog.code), consts.data_ptr(), pub.data_ptr(), tq.data_ptr(), m, width,
-            next_step, sel.data_ptr(), invz.data_ptr(), *alpha_w, scratch.data_ptr(), threads, out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"quotient_program: CUDA error {err}")
-    launches["quotient_program"] += 1
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for k, entry in enumerate(kernels.entries):
+            err = entry(ctypes.byref(args), stream)
+            if err != 0:
+                raise RuntimeError(f"quotient_program: segment {k} of {air.width()}-column "
+                                   f"{type(air).__name__}: CUDA error {err}")
+            launches["quotient_program"] += 1
     return out

@@ -1,36 +1,36 @@
-// The quotient's constraint program on Hopper (sm_90a): one thread per row
-// of the quotient coset walks the program that tapstark_torch/air/program.py
-// recorded from the AIR, and writes the row's folded constraints divided by
-// the zeroifier. Entry point in quotient.cu; plain version: the eager
-// ProverConstraintFolder (program.py quotient_eager).
+// The quotient's constraint program on Hopper (sm_90a): what every generated
+// segment kernel shares. tapstark_torch/air/codegen.py turns the program
+// that air/program.py recorded from an AIR into straight-line CUDA C++, cut
+// into segments of at most air/program.py SEGMENT_INSTRUCTIONS instructions,
+// each its own translation unit and its own __global__ kernel over the whole
+// coset (one thread a row, a grid-stride loop). The segments run one after
+// another; the last writes the row's folded constraints divided by the
+// zeroifier. Plain version: the eager ProverConstraintFolder (program.py
+// quotient_eager).
 //
 // Replaces no Pallas kernel. The JAX package evaluates the same folder
-// under one jit (tapstark/stark/prover.py quotient_values), which XLA fuses;
-// the port evaluated it eagerly, one launch per field operation (about 1.3
-// million for the 1548-column Blake3 AIRs), and this kernel takes its place.
+// under one jit (tapstark/stark/prover.py quotient_values), which XLA fuses.
 //
-// The program: n instructions of four int32 words (opcode, dst slot, a, b).
-// An operand is a kind in its bits 24 and up and an index below them: a
-// slot of this thread's scratch, local column j (tq[row * width + j]), next
-// column j (the row next_step further on, modulo m, as torch.roll(tq,
-// -next_step) gives it), a public value, a constant of the table (both in
-// Montgomery form), or a selector (is_first_row, is_last_row,
-// is_transition). add, sub, mul and neg are BabyBear ops on Montgomery
-// words (babybear.cuh); fold is acc = acc * alpha + x in the quartic
-// extension (x^4 = 11) with x a base value. At the end the row's acc is
-// multiplied by inv_zeroifier[row] and stored (m, 4).
+// A segment's statements are SSA: each instruction a fresh local uint32_t
+// (BabyBear add, sub, mul, neg on Montgomery words, babybear.cuh), each
+// constant a literal Montgomery word, each public value a word of the
+// arguments. A trace column is loaded once a segment, at its first use,
+// from the coset laid out by columns (tq[j * m + row]: a warp's read of a
+// column is one 128-byte line; the next row is row + next_step mod m). The
+// values live across a cut, the 4-word accumulator among them, go through
+// `live`, laid out [value][row] (coalesced too): a segment stores each one
+// it defines right after the statement, and loads each one it reads at its
+// first use. The selectors are computed from the coset's parameters, in the
+// segment that first reads them (codegen.py), and cross cuts as values. The
+// folds of a segment are a sum of products by powers of alpha (fold_pair
+// below), so they form no chain.
 //
 // What bounds it: instruction issue. The 1548-column Blake3 sponge AIR runs
 // ~51,000 instructions a row (24,000 products, 24,000 adds and subs, 3,500
-// folds), some 450,000 32-bit operations, against the 6 KiB of trace the row
-// reads. What this first design does: every thread of a warp runs the same
-// instruction, so the program's words are one broadcast load (__ldg) a warp;
-// the slots live in a global scratch laid out [slot][thread], so a warp's
-// slot reads and writes are 128-byte lines; the scratch is bounded by the
-// threads of one launch (program.py chunk_threads), each walking rows t, t +
-// threads, ... . Not yet done: straight-line code generated per AIR with the
-// slots in registers, and the row staged in shared memory (a warp's trace
-// reads are 32 rows apart).
+// folds) against the 6 KiB of trace the row reads. The design keeps every
+// value in registers inside a segment; ptxas spills where more than 255 are
+// live (its report is printed for each segment); the cuts are placed where
+// the fewest values are live, so the boundary traffic stays small.
 
 #pragma once
 
@@ -38,106 +38,157 @@
 
 #include "babybear.cuh"
 
-namespace {
+// Public values a program may read (air/program.py MAX_PUBLIC).
+constexpr int kMaxPublic = 64;
+constexpr int kQuotientBlock = 128;
+constexpr long long kQuotientMaxBlocks = 4096;
 
-constexpr int kOpAdd = 0, kOpSub = 1, kOpMul = 2, kOpNeg = 3, kOpFold = 4;
-constexpr uint32_t kKindSlot = 0, kKindLocal = 1, kKindNext = 2, kKindPublic = 3, kKindConst = 4;
-constexpr int kKindShift = 24;
-constexpr uint32_t kIndexMask = (1u << kKindShift) - 1;
-constexpr uint64_t kExtW = 11;  // x^4 = W
-
+// The arguments every segment takes (air/codegen.py QuotientArgs mirrors it).
 struct QuotientArgs {
-  const int4* code;          // (n_code, 4): opcode, dst, a, b
-  int n_code;
-  const uint32_t* consts;    // Montgomery constants
-  const uint32_t* pub;       // Montgomery public values
-  const uint32_t* tq;        // (m, width) trace on the coset, Montgomery
-  long long m;               // a power of two
-  int width;
+  const uint32_t* tq;     // (width, m) trace on the coset, by columns, Montgomery
+  uint32_t* live;         // (slots, m) values carried across cuts
+  uint32_t* out;          // (m, 4) quotient, Montgomery
+  const uint32_t* coset;  // x tables lo (2^log_lo) | hi (2^log_hi), then zh and 1/zh (2^log_q each)
+  const uint4* alpha_pows;  // alpha^0, alpha^1, ... (as many as a segment folds, and one), Montgomery
+  long long m;            // a power of two
   long long next_step;
-  const uint32_t* sel;       // (3, m): is_first_row, is_last_row, is_transition
-  const uint32_t* invz;      // (m,) 1 / zeroifier
-  uint32_t alpha[4];         // Montgomery
-  uint32_t* scratch;         // (slots, threads)
-  long long threads;         // threads of the launch
-  uint32_t* out;             // (m, 4)
+  int log_lo, log_hi, log_q;
+  uint32_t g_inv;         // the trace domain's generator, inverted, Montgomery
+  uint32_t pub[kMaxPublic];
 };
 
-__device__ __forceinline__ uint32_t program_operand(const QuotientArgs& a, uint32_t op, long long row,
-                                                    long long next_row, long long t) {
-  const uint32_t idx = op & kIndexMask;
-  switch (op >> kKindShift) {
-    case kKindSlot:
-      return a.scratch[static_cast<long long>(idx) * a.threads + t];
-    case kKindLocal:
-      return a.tq[row * a.width + idx];
-    case kKindNext:
-      return a.tq[next_row * a.width + idx];
-    case kKindPublic:
-      return __ldg(a.pub + idx);
-    case kKindConst:
-      return __ldg(a.consts + idx);
-    default:  // a selector
-      return a.sel[static_cast<long long>(idx) * a.m + row];
+namespace {
+
+constexpr uint32_t kMontOne = 0x0ffffffeu;  // 2^32 mod p
+
+// t * 2^-32 mod p, for t < p * 2^32 (the REDC of mont_mul).
+__device__ __forceinline__ uint32_t mont_reduce(uint64_t t) {
+  const uint32_t lo = static_cast<uint32_t>(t);
+  const uint32_t hi = static_cast<uint32_t>(t >> 32);
+  const uint32_t q = lo * kMu;
+  const uint32_t u = hi + __umulhi(q, kP) + (lo != 0u);
+  return u >= kP ? u - kP : u;
+}
+
+__device__ __forceinline__ uint32_t neg_mod(uint32_t x) { return x == 0u ? 0u : kP - x; }
+
+__device__ __forceinline__ uint64_t wide(uint32_t a, uint32_t b) { return static_cast<uint64_t>(a) * b; }
+
+// The folds. A segment that folds x_0 .. x_{F-1} (in eval order) leaves
+// acc * alpha^F + sum_i x_i * alpha^(F-1-i): the field element that F steps
+// of acc = acc * alpha + x leave, without their chain. Each x_i * alpha^e
+// (x base, the power from the table, the same word in every thread) is four
+// wide products; two folds share a coordinate's reduction (each pair of
+// products < 2p^2 < p * 2^32).
+__device__ __forceinline__ void fold_pair(uint32_t (&sum)[4], const QuotientArgs& a, int e, uint32_t x, uint32_t y) {
+  const uint4 u = __ldg(a.alpha_pows + e), v = __ldg(a.alpha_pows + e - 1);  // x's power, y's
+  sum[0] = add_mod(sum[0], mont_reduce(wide(x, u.x) + wide(y, v.x)));
+  sum[1] = add_mod(sum[1], mont_reduce(wide(x, u.y) + wide(y, v.y)));
+  sum[2] = add_mod(sum[2], mont_reduce(wide(x, u.z) + wide(y, v.z)));
+  sum[3] = add_mod(sum[3], mont_reduce(wide(x, u.w) + wide(y, v.w)));
+}
+
+__device__ __forceinline__ void fold_one(uint32_t (&sum)[4], const QuotientArgs& a, int e, uint32_t x) {
+  const uint4 u = __ldg(a.alpha_pows + e);
+  sum[0] = add_mod(sum[0], mont_mul(x, u.x));
+  sum[1] = add_mod(sum[1], mont_mul(x, u.y));
+  sum[2] = add_mod(sum[2], mont_mul(x, u.z));
+  sum[3] = add_mod(sum[3], mont_mul(x, u.w));
+}
+
+constexpr uint32_t kMontW = 0x37ffffe9u;  // W = 11 as a Montgomery word, 11 * 2^32 mod p
+
+// acc = acc * alpha^e + sum in the quartic extension (x^4 = W): each
+// coordinate is four products, summed in pairs (each pair < 2p^2) and
+// each pair reduced once.
+__device__ __forceinline__ void fold_segment(uint32_t (&acc)[4], const QuotientArgs& a, int e,
+                                             const uint32_t (&sum)[4]) {
+  const uint4 u = __ldg(a.alpha_pows + e);
+  const uint32_t a0 = acc[0], a1 = acc[1], a2 = acc[2], a3 = acc[3];
+  const uint32_t w1 = mont_mul(u.y, kMontW), w2 = mont_mul(u.z, kMontW), w3 = mont_mul(u.w, kMontW);
+  acc[0] = add_mod(add_mod(mont_reduce(wide(a0, u.x) + wide(a1, w3)), mont_reduce(wide(a2, w2) + wide(a3, w1))),
+                   sum[0]);
+  acc[1] = add_mod(add_mod(mont_reduce(wide(a0, u.y) + wide(a1, u.x)), mont_reduce(wide(a2, w3) + wide(a3, w2))),
+                   sum[1]);
+  acc[2] = add_mod(add_mod(mont_reduce(wide(a0, u.z) + wide(a1, u.y)), mont_reduce(wide(a2, u.x) + wide(a3, w3))),
+                   sum[2]);
+  acc[3] = add_mod(add_mod(mont_reduce(wide(a0, u.w) + wide(a1, u.z)), mont_reduce(wide(a2, u.y) + wide(a3, u.x))),
+                   sum[3]);
+}
+
+// x^(p-2) = 1/x (Fermat); p - 2 = 0b1110 followed by 27 ones: x^7, one
+// square, then nine rounds of three squares and a product by x^7.
+__device__ __forceinline__ uint32_t mont_inv(uint32_t x) {
+  const uint32_t x3 = mont_mul(mont_mul(x, x), x);
+  const uint32_t x7 = mont_mul(mont_mul(x3, x3), x);
+  uint32_t t = mont_mul(x7, x7);
+  for (int i = 0; i < 9; ++i) {
+    t = mont_mul(t, t);
+    t = mont_mul(t, t);
+    t = mont_mul(mont_mul(t, t), x7);
   }
+  return t;
 }
 
-// sum of four canonical low products + W * sum of the high ones, mod p
-__device__ __forceinline__ uint32_t ext_coord(uint64_t low, uint64_t high) {
-  return static_cast<uint32_t>((low + kExtW * high) % kP);
+// The coset point of `row`: shift * omega^row = hi[row >> log_lo] * lo[row mod 2^log_lo].
+__device__ __forceinline__ uint32_t coset_x(const QuotientArgs& a, long long row) {
+  const long long lo_mask = (1ll << a.log_lo) - 1;
+  return mont_mul(__ldg(a.coset + (1ll << a.log_lo) + (row >> a.log_lo)), __ldg(a.coset + (row & lo_mask)));
 }
 
-__global__ void __launch_bounds__(256) quotient_program_kernel(const __grid_constant__ QuotientArgs a) {
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= a.threads) return;
-  for (long long row = t; row < a.m; row += a.threads) {
-    const long long next_row = (row + a.next_step) & (a.m - 1);
-    uint32_t acc0 = 0, acc1 = 0, acc2 = 0, acc3 = 0;
-    for (int k = 0; k < a.n_code; ++k) {
-      const int4 ins = __ldg(a.code + k);
-      const uint32_t x = program_operand(a, static_cast<uint32_t>(ins.z), row, next_row, t);
-      if (ins.x == kOpFold) {
-        // acc * alpha, each partial product reduced, then + x
-        const uint64_t p00 = mont_mul(acc0, a.alpha[0]), p01 = mont_mul(acc0, a.alpha[1]);
-        const uint64_t p02 = mont_mul(acc0, a.alpha[2]), p03 = mont_mul(acc0, a.alpha[3]);
-        const uint64_t p10 = mont_mul(acc1, a.alpha[0]), p11 = mont_mul(acc1, a.alpha[1]);
-        const uint64_t p12 = mont_mul(acc1, a.alpha[2]), p13 = mont_mul(acc1, a.alpha[3]);
-        const uint64_t p20 = mont_mul(acc2, a.alpha[0]), p21 = mont_mul(acc2, a.alpha[1]);
-        const uint64_t p22 = mont_mul(acc2, a.alpha[2]), p23 = mont_mul(acc2, a.alpha[3]);
-        const uint64_t p30 = mont_mul(acc3, a.alpha[0]), p31 = mont_mul(acc3, a.alpha[1]);
-        const uint64_t p32 = mont_mul(acc3, a.alpha[2]), p33 = mont_mul(acc3, a.alpha[3]);
-        acc0 = add_mod(ext_coord(p00, p13 + p22 + p31), x);
-        acc1 = ext_coord(p01 + p10, p23 + p32);
-        acc2 = ext_coord(p02 + p11 + p20, p33);
-        acc3 = ext_coord(p03 + p12 + p21 + p30, 0);
-        continue;
-      }
-      uint32_t r;
-      if (ins.x == kOpNeg) {
-        r = x == 0u ? 0u : kP - x;
-      } else {
-        const uint32_t y = program_operand(a, static_cast<uint32_t>(ins.w), row, next_row, t);
-        r = ins.x == kOpAdd ? add_mod(x, y) : ins.x == kOpSub ? sub_mod(x, y) : mont_mul(x, y);
-      }
-      a.scratch[static_cast<long long>(ins.y) * a.threads + t] = r;
-    }
-    const uint32_t z = a.invz[row];
-    uint32_t* o = a.out + 4 * row;
-    o[0] = mont_mul(acc0, z);
-    o[1] = mont_mul(acc1, z);
-    o[2] = mont_mul(acc2, z);
-    o[3] = mont_mul(acc3, z);
-  }
+// x^n - 1 takes 2^log_q values over the coset: entry row mod 2^log_q of
+// the zeroifier table (which = 0), or of its inverses (which = 1).
+__device__ __forceinline__ uint32_t coset_zh(const QuotientArgs& a, long long row, int which) {
+  const long long base = (1ll << a.log_lo) + (1ll << a.log_hi) + (static_cast<long long>(which) << a.log_q);
+  return __ldg(a.coset + base + (row & ((1ll << a.log_q) - 1)));
 }
 
-#ifdef __CUDACC__
-inline cudaError_t launch_quotient_program(const QuotientArgs& a, cudaStream_t stream) {
-  if (a.threads <= 0 || a.threads > a.m || a.n_code < 0) return cudaErrorInvalidValue;
-  const long long block = a.threads < 256 ? a.threads : 256;
-  const long long grid = (a.threads + block - 1) / block;
-  quotient_program_kernel<<<static_cast<unsigned>(grid), static_cast<unsigned>(block), 0, stream>>>(a);
-  return cudaGetLastError();
+// is_first_row = zh / (x - 1), is_last_row = zh / (x - g^-1): one inverse
+// of the product of both denominators.
+__device__ __forceinline__ void first_and_last_row(uint32_t x, uint32_t zh, uint32_t g_inv, uint32_t& first,
+                                                   uint32_t& last) {
+  const uint32_t d1 = sub_mod(x, kMontOne), d2 = sub_mod(x, g_inv);
+  const uint32_t inv = mont_inv(mont_mul(d1, d2));
+  first = mont_mul(zh, mont_mul(inv, d2));
+  last = mont_mul(zh, mont_mul(inv, d1));
 }
-#endif  // __CUDACC__
+
+__device__ __forceinline__ uint32_t first_row(uint32_t x, uint32_t zh) {
+  return mont_mul(zh, mont_inv(sub_mod(x, kMontOne)));
+}
+
+__device__ __forceinline__ uint32_t last_row(uint32_t x, uint32_t zh, uint32_t g_inv) {
+  return mont_mul(zh, mont_inv(sub_mod(x, g_inv)));
+}
+
+// The last segment's store: the accumulator times 1/zh.
+__device__ __forceinline__ void store_quotient(const QuotientArgs& a, long long row, const uint32_t (&acc)[4]) {
+  const uint32_t z = coset_zh(a, row, 1);
+  uint32_t* o = a.out + 4 * row;
+  o[0] = mont_mul(acc[0], z);
+  o[1] = mont_mul(acc[1], z);
+  o[2] = mont_mul(acc[2], z);
+  o[3] = mont_mul(acc[3], z);
+}
+
+__host__ __device__ inline unsigned quotient_grid(long long m) {
+  const long long blocks = (m + kQuotientBlock - 1) / kQuotientBlock;
+  return static_cast<unsigned>(blocks < kQuotientMaxBlocks ? blocks : kQuotientMaxBlocks);
+}
 
 }  // namespace
+
+// A segment's C entry point: on the card, the launch on the caller's stream
+// (returns the launch's CUDA error); on the host (tests/cuda_host_shim),
+// the launch's threads one after another.
+#ifdef __CUDACC__
+#define QUOTIENT_SEGMENT_ENTRY(name, kernel)                                                   \
+  extern "C" int name(const QuotientArgs* a, void* stream) {                                   \
+    kernel<<<quotient_grid(a->m), kQuotientBlock, 0, static_cast<cudaStream_t>(stream)>>>(*a); \
+    return static_cast<int>(cudaGetLastError());                                               \
+  }
+#else
+void host_launch_segment(void (*kernel)(QuotientArgs), const QuotientArgs& a);
+#define QUOTIENT_SEGMENT_ENTRY(name, kernel) \
+  extern "C" void name(const QuotientArgs* a) { host_launch_segment(kernel, *a); }
+#endif

@@ -43,7 +43,7 @@ from ..field.device import (
 )
 from ..poly.domain import TwoAdicMultiplicativeCoset
 from ..poly.interpolate import _interp_weights
-from ..poly.ntt import bit_reverse_rows, coset_lde_batch_auto
+from ..poly.ntt import bit_reverse_cols, bit_reverse_rows, coset_lde_batch_auto
 from ..poly.powers import bitrev_1d_dev, geom_powers_mont_dev
 from ..poly.reduce import fp_sum_axis0
 from . import prover as fri_prover
@@ -144,9 +144,16 @@ class TwoAdicFriPcs:
         return commitment, PcsProverData(domains=domains, ldes=ldes, commited=commited)
 
     def get_evaluations_on_domain(self, prover_data: PcsProverData, idx: int, domain):
+        """The matrix's (m, w) values on `domain` in natural order: the first
+        m rows of its bit-reversed LDE, bit-reversed. On the card the one
+        gather writes them by columns (`bit_reverse_cols`: a (w, m) tensor,
+        returned as its (m, w) transpose with strides (1, m)), the layout
+        the quotient kernels read; on the CPU, by rows."""
         if domain.shift != F.generator().v:
             raise ValueError("expected the disjoint (generator-shifted) domain")
         lde = prover_data.ldes[idx]
+        if lde.device.type == "cuda":
+            return bit_reverse_cols(lde, domain.size())
         return bit_reverse_rows(lde[: domain.size()])
 
     # -- open --------------------------------------------------------------

@@ -51,6 +51,46 @@ def bit_reverse_rows(mat: torch.Tensor) -> torch.Tensor:
     return mat.index_select(0, bitrev_indices_dev(log_n, mat.device))
 
 
+# Launches of `bit_reverse_cols`'s kernel since the last reset.
+launches = {"bit_reverse_cols": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def bit_reverse_cols_plain(mat: torch.Tensor, m: int) -> torch.Tensor:
+    return bit_reverse_rows(mat[:m]).t().contiguous().t()
+
+
+def bit_reverse_cols(mat: torch.Tensor, m: int) -> torch.Tensor:
+    """`bit_reverse_rows(mat[:m])` laid out by columns: a (w, m) tensor,
+    returned as its (m, w) transpose (strides (1, m)). On the card one
+    launch of `csrc/bitrev_cols.cu` (a tiled transpose that reads each
+    source row's words and writes each column's, both coalesced); on a
+    CPU tensor, its plain version."""
+    log_m = log2_strict(m)
+    if mat.dim() != 2 or mat.shape[0] < m:
+        raise ValueError(f"bit_reverse_cols: shape {tuple(mat.shape)} has fewer than {m} rows")
+    if mat.device.type == "cpu":
+        return bit_reverse_cols_plain(mat, m)
+    if mat.device.type != "cuda":
+        raise ValueError(f"bit_reverse_cols: no path for device {mat.device}")
+    if mat.dtype != torch.int32 or not mat.is_contiguous():
+        raise ValueError("bit_reverse_cols: expected a contiguous int32 tensor")
+    from .._build import load_library
+
+    out = torch.empty((mat.shape[1], m), dtype=torch.int32, device=mat.device)
+    with torch.cuda.device(mat.device):
+        err = load_library().tapstark_bitrev_cols(mat.data_ptr(), mat.shape[1], log_m, out.data_ptr(),
+                                                   torch.cuda.current_stream(mat.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"bit_reverse_cols: CUDA error {err}")
+    launches["bit_reverse_cols"] += 1
+    return out.t()
+
+
 def ntt(coeffs: torch.Tensor) -> torch.Tensor:
     """Forward NTT: natural coefficients (n, w) → natural evaluations."""
     log_n = log2_strict(coeffs.shape[0])

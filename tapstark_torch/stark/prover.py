@@ -94,10 +94,7 @@ def quotient_values(
 ) -> torch.Tensor:
     """Constraint accumulator over the whole quotient coset divided by the
     zeroifier (prover.rs:121-194), as an (m, 4) Montgomery tensor. On the
-    card, one launch of the constraint-program kernel (`air/program.py`);
-    on the CPU, its plain version, the eager folder over whole-coset
-    tensors."""
-    dev = trace_on_quotient_domain.device
-    sels = trace_domain.selectors_on_coset(quotient_domain, dev)
-    next_step = 1 << (quotient_domain.log_n - trace_domain.log_n)
-    return quotient_program(air, public_values, sels, next_step, trace_on_quotient_domain, alpha)
+    card, the AIR's generated constraint-program kernels (`air/program.py`),
+    which compute the selectors from the coset's parameters; on the CPU,
+    their plain version, the eager folder over whole-coset tensors."""
+    return quotient_program(air, public_values, trace_domain, quotient_domain, trace_on_quotient_domain, alpha)

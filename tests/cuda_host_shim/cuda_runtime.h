@@ -1,9 +1,10 @@
 // Stand-ins for the CUDA built-ins that tapstark_torch/csrc/dit_cols.cuh,
-// dif_cols.cuh, matmul_ntt.cuh and quotient.cuh use, so that their kernels
-// and helpers compile with g++ and run on the host for the tests: one
-// std::thread per CUDA thread, one block at a time, a std::barrier for
-// __syncthreads (see dit_host.cpp); matmul_host.cpp runs the limb-matmul
-// kernel's data flow, quotient_host.cpp the constraint program's threads.
+// dif_cols.cuh, matmul_ntt.cuh and quotient.cuh (with the quotient's
+// generated segments) use, so that their kernels and helpers compile with
+// g++ and run on the host for the tests: one std::thread per CUDA thread,
+// one block at a time, a std::barrier for __syncthreads (see dit_host.cpp);
+// matmul_host.cpp runs the limb-matmul kernel's data flow, quotient_host.cpp
+// the quotient's segments, one after another.
 #pragma once
 #include <barrier>
 #include <cstddef>
@@ -16,12 +17,12 @@ struct dim3 {
 struct uint2 {
   uint32_t x, y;
 };
-struct int4 {
-  int x, y, z, w;
+struct uint4 {
+  uint32_t x, y, z, w;
 };
 
 extern thread_local dim3 threadIdx, blockIdx;
-extern dim3 blockDim;
+extern dim3 blockDim, gridDim;
 extern std::barrier<>* host_block_barrier;
 
 inline void __syncthreads() { host_block_barrier->arrive_and_wait(); }

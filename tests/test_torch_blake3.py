@@ -16,6 +16,7 @@ holds the CUDA build against the same on the card.
 
 import ctypes
 import hashlib
+import os
 import pathlib
 import subprocess
 
@@ -37,7 +38,27 @@ from tapstark.stark import VerificationError as JVerificationError
 from tapstark.stark import verify as j_verify
 from tapstark.stark.serde import proof_from_bytes as j_proof_from_bytes
 from tapstark_torch.air.folders import VerifierConstraintFolder
-from tapstark_torch.air.program import chunk_threads, program_for, quotient_eager
+from tapstark_torch.air import codegen
+from tapstark_torch.air.program import (
+    K_CONST,
+    K_LOCAL,
+    K_NEXT,
+    K_PUBLIC,
+    K_SEL,
+    K_VAL,
+    KIND_SHIFT,
+    OP_ADD,
+    OP_FOLD,
+    OP_MUL,
+    OP_NEG,
+    OP_SUB,
+    SEGMENT_INSTRUCTIONS,
+    alpha_powers,
+    coset_tables,
+    program_for,
+    quotient_args,
+    quotient_eager,
+)
 from tapstark_torch.air.symbolic import get_log_quotient_degree
 from tapstark_torch.airs import (
     Blake3CompressionAir,
@@ -153,33 +174,106 @@ def test_sponge_quotient_rows_match_jax_folder():
         assert [int(v) for v in got[i]] == want, i
 
 
+# the host-shim cases: (AIR, number of public values, log_n, launch (grid,
+# block) or None for the card's, S or None for SEGMENT_INSTRUCTIONS)
+HOST_CASES = [(FibonacciAir(), 3, 3, None, None), (MulAir(), 3, 4, (2, 4), None), (WideAir(8), 8, 3, None, 16),
+              (RecursionAir(), 12, 3, (3, 4), 300), (Blake3GAir(), 8, 4, None, None),
+              (Blake3CompressionAir(), 48, 3, None, None), (Blake3SpongeChainAir(), 16, 3, (2, 4), None)]
+
+
 @pytest.fixture(scope="module")
 def host_program(tmp_path_factory):
-    """csrc/quotient.cuh's kernel, built with g++ against
-    tests/cuda_host_shim (quotient_host.cpp runs the launch's threads)."""
+    """The generated segments of every HOST_CASES program, built with g++
+    -O0 against tests/cuda_host_shim (one translation unit a segment, all
+    at once) and linked with quotient_host.cpp, which runs them one after
+    another: (library, {case index: (plan, entry points)})."""
     here = pathlib.Path(__file__).parent
     shim, csrc = here / "cuda_host_shim", here.parent / "tapstark_torch" / "csrc"
-    so = tmp_path_factory.mktemp("quotient_host") / "libquotient_host.so"
-    subprocess.run(["g++", "-std=c++20", "-O1", "-fPIC", "-shared", f"-I{shim}", f"-I{csrc}", "-o", str(so),
-                    str(shim / "quotient_host.cpp")], check=True, capture_output=True, text=True)
+    out = tmp_path_factory.mktemp("quotient_host")
+    flags = ["g++", "-std=c++20", "-fPIC", f"-I{shim}", f"-I{csrc}"]
+    plans, objs = {}, []
+    for c, (air, num_public, _, _, s) in enumerate(HOST_CASES):
+        prog = program_for(air, num_public)
+        pl = codegen.plan(prog, s or SEGMENT_INSTRUCTIONS)
+        plans[c] = pl
+        for k, text in enumerate(codegen.sources(prog, pl, f"case{c}")):
+            (out / f"case{c}_{k}.cu").write_text(text)
+            objs.append(out / f"case{c}_{k}.o")
+    procs, pending = [], [(o.with_suffix(".cu"), o) for o in objs]
+    while pending or procs:  # at most one g++ a CPU
+        while pending and len(procs) < (os.cpu_count() or 1):
+            src, o = pending.pop()
+            procs.append(subprocess.Popen([*flags, "-O0", "-x", "c++", "-include", "cuda_runtime.h", "-c", "-o",
+                                           str(o), str(src)], stderr=subprocess.PIPE, text=True))
+        p = procs.pop(0)
+        assert p.wait() == 0, p.stderr.read()
+    so = out / "libquotient_host.so"
+    subprocess.run([*flags, "-O1", "-shared", "-o", str(so), str(shim / "quotient_host.cpp"), *map(str, objs)],
+                   check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(so))
-    ptr, i32, i64, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint32
-    lib.host_quotient_program.argtypes = [ptr, i32, ptr, ptr, ptr, i64, i32, i64, ptr, ptr, u32, u32, u32, u32,
-                                          ptr, i64, ptr]
-    return lib
+    lib.host_run_segments.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_uint, ctypes.c_uint,
+                                      ctypes.c_void_p, ctypes.c_longlong]
+    entries = {c: [ctypes.cast(getattr(lib, f"case{c}_{k}"), ctypes.c_void_p).value
+                   for k in range(len(pl.segments))] for c, pl in plans.items()}
+    return lib, {c: (plans[c], entries[c]) for c in plans}
+
+
+def _program_values(prog, tq, pis, sels, step, alpha, cuts):
+    """Every value of the program (instruction i: row i; selector s: row n +
+    s) at every coset row, and the accumulator at each of `cuts`, as
+    Montgomery words, by numpy: an evaluator independent of the generated
+    code."""
+    n, m = len(prog.code), tq.shape[0]
+    p, rinv, w = np.uint64(P), np.uint64(pow(R_MOD_P, P - 2, P)), np.uint64(11)
+    vals = np.zeros((n + 3, m), np.uint64)
+    vals[n:] = [mont_np_from_tensor(s) for s in (sels.is_first_row, sels.is_last_row, sels.is_transition)]
+    nxt = np.roll(tq, -step, axis=0)
+    pub = [np.uint64(v.v * R_MOD_P % P) for v in pis]
+    al = [np.uint64(v * R_MOD_P % P) for v in alpha.as_u32_vec()]
+
+    def mul(x, y):
+        return (x * y % p) * rinv % p
+
+    def get(x):
+        kind, i = x >> KIND_SHIFT, x & ((1 << KIND_SHIFT) - 1)
+        return {K_VAL: lambda: vals[i], K_LOCAL: lambda: tq[:, i], K_NEXT: lambda: nxt[:, i],
+                K_PUBLIC: lambda: pub[i], K_CONST: lambda: np.uint64(prog.consts[i]),
+                K_SEL: lambda: vals[n + i]}[kind]().astype(np.uint64)
+
+    acc, acc_at = [np.zeros(m, np.uint64) for _ in range(4)], {}
+    for i, (op, a, b) in enumerate(prog.code.astype(np.int64)):
+        if i in cuts:
+            acc_at[i] = np.stack(acc)
+        x, y = get(a), get(b)
+        if op == OP_FOLD:  # acc * alpha + x, x^4 = 11
+            prod = [sum((mul(acc[j], al[t - j]) if t >= j else w * mul(acc[j], al[t + 4 - j])) % p
+                        for j in range(4)) % p for t in range(4)]
+            acc = [(prod[0] + x) % p, *prod[1:]]
+            continue
+        vals[i] = {OP_ADD: lambda: (x + y) % p, OP_SUB: lambda: (x + p - y) % p, OP_NEG: lambda: (p - x) % p,
+                   OP_MUL: lambda: mul(x, y)}[op]()
+    return vals, acc_at
 
 
 def test_program_on_host_shim_matches_eager(host_program):
-    """The recorded program, run by the kernel's own source on the host,
-    against the eager folder word for word: Fibonacci, MulAir, WideAir,
-    RecursionAir (163 columns), Blake3GAir and both 1548-column AIRs, on
-    random cosets of 16-32 rows, with as many threads as rows and with
-    fewer (each thread then walks several rows)."""
-    cases = [(FibonacciAir(), 3, 3, None), (MulAir(), 3, 4, 4), (WideAir(8), 8, 3, None),
-             (RecursionAir(), 12, 3, 2), (Blake3GAir(), 8, 4, None), (Blake3CompressionAir(), 48, 3, None),
-             (Blake3SpongeChainAir(), 16, 3, 4)]
+    """The generated segments of each recorded program, run one after
+    another on the host from the coset's parameters (the selectors computed
+    by the kernel code) and the coset laid out by columns, against the
+    eager folder word for word: Fibonacci, MulAir, WideAir, RecursionAir
+    (163 columns), Blake3GAir and both 1548-column AIRs, on random cosets
+    of 8-32 rows, with the card's launch shape and with fewer threads
+    (each thread then walks several rows), at SEGMENT_INSTRUCTIONS and,
+    for WideAir and RecursionAir, a short S that cuts them. At every cut,
+    the values carried across it are exactly those read after it: the
+    plan's carried set equals the set read after the cut and defined
+    before it (liveness recomputed here), each is stored and loaded at one
+    row of the live buffer that nothing overwrites in between, and after
+    the segments before the cut that row holds the value's words (numpy
+    evaluation of the program)."""
+    lib, built = host_program
     rng = np.random.default_rng(43)
-    for air, num_public, log_n, threads in cases:
+    for c, (air, num_public, log_n, launch, _) in enumerate(HOST_CASES):
+        pl, entries = built[c]
         prog = program_for(air, num_public)
         td = TwoAdicMultiplicativeCoset(log_n, 1)
         log_q = get_log_quotient_degree(air, num_public)
@@ -191,20 +285,48 @@ def test_program_on_host_shim_matches_eager(host_program):
         sels = td.selectors_on_coset(qd, "cpu")
         want = mont_np_from_tensor(quotient_eager(air, pis, sels, step, tensor_from_mont_np(tq), alpha))
 
-        threads = threads or chunk_threads(m, prog.slots)
-        sel = np.stack([mont_np_from_tensor(s) for s in (sels.is_first_row, sels.is_last_row, sels.is_transition)])
-        invz = mont_np_from_tensor(sels.inv_zeroifier).copy()
-        pub = np.array([v.v * R_MOD_P % P for v in pis], np.uint32)
-        consts = prog.consts if len(prog.consts) else np.zeros(1, np.uint32)
-        scratch = np.full(max(prog.slots, 1) * threads, 0xA5A5A5A5, np.uint32)
+        tq_cols = np.ascontiguousarray(tq.T)
+        coset = mont_np_from_tensor(coset_tables(log_n, qd.log_n, qd.shift, "cpu")).copy()
+        live = np.full((max(pl.live_rows, 1), m), 0xA5A5A5A5, np.uint32)  # not a field word
         out = np.zeros((m, 4), np.uint32)
-        code = np.ascontiguousarray(prog.code)
-        alpha_w = [v * R_MOD_P % P for v in alpha.as_u32_vec()]
-        err = host_program.host_quotient_program(
-            code.ctypes.data, len(code), consts.ctypes.data, pub.ctypes.data, tq.ctypes.data, m, w, step,
-            sel.ctypes.data, invz.ctypes.data, *alpha_w, scratch.ctypes.data, threads, out.ctypes.data)
-        assert err == 0
+        pows = alpha_powers(alpha, pl.alpha_powers)
+        args = quotient_args(td, qd, pis, tq_cols.ctypes.data, live.ctypes.data, out.ctypes.data, coset.ctypes.data,
+                             pows.ctypes.data)
+        snaps = np.zeros((len(entries), *live.shape), np.uint32)
+        fns = (ctypes.c_void_p * len(entries))(*entries)
+        grid, block = launch or (0, 0)
+        lib.host_run_segments(fns, len(entries), ctypes.byref(args), grid, block, snaps.ctypes.data, live.size)
         np.testing.assert_array_equal(out, want, err_msg=type(air).__name__)
+
+        # the cuts
+        n, segs = len(prog.code), pl.segments
+        reads = [(i, (int(x) & 0xFFFFFF) + (n if x >> KIND_SHIFT == K_SEL else 0))
+                 for i, row in enumerate(prog.code[:, 1:].astype(np.int64)) for x in row
+                 if x >> KIND_SHIFT in (K_VAL, K_SEL)]
+        first = {}
+        for i, v in reads:
+            first.setdefault(v, i)
+        vals, acc_at = _program_values(prog, tq, pis, sels, step, alpha, {sg.stop for sg in segs[:-1]})
+        holder = {}  # live-buffer row -> the value it holds
+        for k, sg in enumerate(segs):
+            for v, r in sg.loads.items():  # stored at this row before, not overwritten since
+                assert holder.get(r) == v, (type(air).__name__, k, v)
+            # a row a segment loads is not stored in it (loads and stores keep no order)
+            assert not set(sg.loads.values()) & set(sg.stores.values()), (type(air).__name__, k)
+            holder.update({r: v for v, r in sg.stores.items()})
+            if k + 1 == len(segs):
+                break
+            cut = sg.stop
+            read_after = {v for i, v in reads if i >= cut and (v < cut if v < n else first[v] < cut)}
+            carried = {v for s in segs[: k + 1] for v in s.stores} & {v for s in segs[k + 1 :] for v in s.loads}
+            assert carried == read_after, (type(air).__name__, k)
+            rows = {v: r for r, v in holder.items()}
+            for v in carried:
+                np.testing.assert_array_equal(snaps[k, rows[v]], vals[v], err_msg=f"{type(air).__name__}: {v}")
+            folded = bool((prog.code[:cut, 0] == OP_FOLD).any())
+            if folded:
+                np.testing.assert_array_equal(snaps[k, :4], acc_at[cut], err_msg=f"{type(air).__name__}: acc")
+            assert sg.live_out == len(carried) + 4 * folded, (type(air).__name__, k)
 
 
 def _j_pcs(num_queries, log_blowup, pow_bits):
