@@ -34,7 +34,11 @@ them) word for word against the selectors and the eager constraint folder
 at the quotient shapes of the flagship, the two Fibonacci proves and the
 wide row. Every prove runs each segment of its AIR's program once, after
 one launch of `bit_reverse_cols` (the gather that writes the quotient's
-coset by columns), which is held against its plain version too.
+coset by columns), which is held against its plain version too. Each
+prove's FRI layers folded on the card take their betas from the device
+transcript chain (`transcript_step`, csrc/transcript.cu, held against its
+plain version in chains of 3 steps): the smoke asserts its steps in every
+prove (CHAIN_STEPS), and that no opening copied a whole padding matrix.
 (`chip_study.py` holds the longer measurements: full-size kernel times,
 the two LDE routes at 2^22 and 2^23 rows, the NTT kernels' own device
 time, the card's busy share, the FRI host-tail switch.)
@@ -188,7 +192,25 @@ KERNELS = [  # name, replaced TPU kernel, source, path whose launches the JSON l
     ("quotient_program", "tapstark/stark/prover.py:127", "tapstark_torch/csrc/quotient.cuh", "blake3 sponge"),
     # no Pallas kernel: the JAX package's row gather of the coset; the card's writes it by columns
     ("bit_reverse_cols", "tapstark/fri/pcs.py:191", "tapstark_torch/csrc/bitrev_cols.cu", "blake3 sponge"),
+    # no Pallas kernel: the JAX package jits the FRI transcript step (`_step`) as jnp
+    ("transcript_step", "tapstark/challenger/device_tail.py:106", "tapstark_torch/csrc/transcript.cu", "prove 2^20"),
 ]
+# the FRI transcript step against its plain version: chains of 3 steps at
+# each (compression, pending input words, R roots); the 2^20 / 2^22
+# proves' 28 repetitions (the JSON row's, timed first) and the wide row's
+# and flagship's 16, timed against the bound, and the most one blake3
+# chunk holds, 32
+TRANSCRIPT_CHAINS = [(kind, pending, reps) for kind in ("blake3", "test") for pending in (0, 3, 8, 11)
+                     for reps in (28, 16, 32)]
+TRANSCRIPT_TIMED = [("blake3", 0, 28), ("blake3", 0, 16)]
+# device transcript chain steps a prove takes: one per FRI layer folded on
+# the card, i.e. of more than fri/prover.py HOST_TAIL_MAX_HALF = 2^13 rows
+# after the fold: 2^20 rows x blowup 4 folds 2^22 -> 2^14 (8 layers), 2^22
+# x 4: 2^24 -> 2^14 (10), the wide row 2^18 x 16: 2^22 -> 2^14 (8), the
+# flagship 2^16 x 2: 2^17 -> 2^14 (3); the golden 2^3 x 4 and the
+# 64-compression sponge (2^12 x 2) fold on the host only
+CHAIN_STEPS = {"golden": 0, "north star": 8, "blocks route": 10, "wide row": 8, "blake3 sponge": 3,
+               "blake3 sponge 64": 0}
 # the coset gather against its plain version: (LDE rows, width, coset rows)
 # at the flagship's, the wide row's, Fibonacci 2^22's and 2^20's (timed
 # against the bound, the flagship's first, the JSON row's), and the
@@ -258,6 +280,13 @@ OPS_NEG = 2
 OPS_FOLD = 4 * (2 + (OPS_MONT_MUL - 1) + OPS_ADD) // 2
 OPS_BATCH_INVERSE = 3 * OPS_MONT_MUL
 OPS_INVERSE = 41 * OPS_MONT_MUL
+# a blake3 compression (the transcript step): 7 rounds of 8 G functions,
+# each four adds (IADD3), four XORs (LOP3) and four rotates, then 8 XORs
+# for the output; a root word's byte swap (one PRMT); a TestPermutation
+# step 4 instructions a word; to_mont of a popped word, a reduction mod p
+# (2) and a Montgomery product
+OPS_BLAKE3_COMPRESS = 7 * 8 * 12 + 8
+OPS_TEST_PERMUTATION = 4 * 8
 
 def bound(ops: float, nbytes: float) -> tuple[float, str, dict]:
     """(ms, what bounds it, both times in ms): the larger of the two
@@ -401,6 +430,20 @@ def quotient_bound(counts: dict, selectors: set, m: int, width: int) -> tuple[fl
     per_row += inverted * (OPS_ADD + OPS_BATCH_INVERSE + OPS_MONT_MUL)
     return bound(m * per_row + (OPS_INVERSE if inverted else 0), 4 * m * (width + 4))
     return bound(m * per_row, 4 * m * (width + 4))
+
+def transcript_bound(kind: str, pending: int, reps: int) -> tuple[float, str, dict]:
+    """`transcript_step`: ceil(R / 2) blake3 compressions for the digest,
+    R * 8 byte swaps, one duplex step (two with 8 or more pending words),
+    four popped words to Montgomery form; the roots, cv and pending words
+    read once, the 16 output words written once. The compressions are a
+    dependent chain, which the bound does not charge: it is the card's
+    least time for the same work, not for one thread."""
+    duplex = 2 if pending > 8 else 1  # pending || digest: a full block, then the rest
+    ops = (-(-reps // 2) * OPS_BLAKE3_COMPRESS + 8 * reps
+           + duplex * (OPS_BLAKE3_COMPRESS if kind == "blake3" else OPS_TEST_PERMUTATION)
+           + 4 * (2 + OPS_MONT_MUL))
+    return bound(ops, 4 * (8 * reps + 8 + pending + 16))
+
 
 # Kernels that must build without spilling (ptxas's report): the SHA-256
 # kernels and the two DIT and two DIF kernels, each at its 64-register cap,
@@ -833,19 +876,26 @@ def run_counted(dev, fn):
     count reset just before it; prints the spans, the launches and the
     peak, and returns (fn's result, the counts read just after)."""
     from tapstark_torch.air import program
+    from tapstark_torch.challenger import device_tail
+    from tapstark_torch.commit.device_commit import DeviceValues
     from tapstark_torch.hashes import sha256_device
     from tapstark_torch.poly import cols_ntt, cuda_ntt, ntt
     from tapstark_torch.poly import matmul_ntt as mm
     from tapstark_torch.utils import profiling
 
-    modules = (cuda_ntt, cols_ntt, sha256_device, mm, program, ntt)
+    modules = (cuda_ntt, cols_ntt, sha256_device, mm, program, ntt, device_tail)
     profiling.reset()
     profiling.enable()
     torch.cuda.reset_peak_memory_stats(dev)
     for module in modules:
         module.reset_launch_counts()
+    steps, full = device_tail.TOTAL_STEPS, DeviceValues.full_calls
     result = fn()
     launches = {k: v for module in modules for k, v in module.launches.items()}
+    # the device transcript chain's steps, and whole padding matrices copied
+    # to the host (DeviceValues.full, a fallback no prove should take)
+    launches["chain steps"] = device_tail.TOTAL_STEPS - steps
+    launches["values full"] = DeviceValues.full_calls - full
     profiling.enable(False)
     for span, r in profiling.report().items():
         print(f"phase {span}: {r['total_s']:.3f} s over {r['calls']} call(s)")
@@ -1009,6 +1059,43 @@ def check_bitrev_cols(dev, stats: dict) -> None:
         del mat, got
 
 
+def check_transcript_kernel(dev, stats: dict) -> None:
+    """The FRI transcript step against its plain version (the eager step)
+    on the card: a chain of 3 steps at every TRANSCRIPT_CHAINS entry, from
+    random chaining words and pending input, the roots read through K6's
+    strided view (columns of a (8, R, T + 1) level buffer) as in a prove,
+    word for word (cv', beta, the popped words); timed at
+    TRANSCRIPT_TIMED against the bound."""
+    from tapstark_torch.challenger import device_tail as dt
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+
+    def words(*shape):
+        return torch.randint(-(1 << 31), 1 << 31, shape, dtype=torch.int32, device=dev, generator=gen)
+
+    kinds = {"blake3": dt.KIND_BLAKE3, "test": dt.KIND_TEST}
+    for name, pending, reps in TRANSCRIPT_CHAINS:
+        kind = kinds[name]
+        cv_k = cv_p = words(8)
+        pend = words(pending)
+        for step in range(3):
+            roots = words(8, reps, 5)[:, :, -1].T
+            got = dt.transcript_step(cv_k, pend, roots, kind)
+            want = dt.transcript_step_plain(cv_p, pend, roots, kind)
+            where = f"{name} pending={pending} R={reps} step={step}"
+            err = max(compare("transcript_step", g, w, where) for g, w in zip(got, want))
+            if step == 0 and (name, pending, reps) in TRANSCRIPT_TIMED:
+                bnd = transcript_bound(name, pending, reps)
+                record(stats, "transcript_step", err, lambda: dt.transcript_step(cv_k, pend, roots, kind),
+                       lambda: dt.transcript_step_plain(cv_p, pend, roots, kind), where, bnd)
+                print(f"transcript_step bound at {where}: {1e6 * bnd[0]:.3f} ns ({bnd[1]})", flush=True)
+            stats.setdefault("transcript_step", {"max_abs_err": 0, "shapes": []})
+            stats["transcript_step"]["max_abs_err"] = max(stats["transcript_step"]["max_abs_err"], err)
+            cv_k, cv_p, pend = got[0], want[0], pend[:0]
+    print(f"transcript_step: {len(TRANSCRIPT_CHAINS)} chains of 3 steps equal to the plain version", flush=True)
+
+
 def quotient_case(dev, air_name: str, log_n: int, seed: int):
     """The inputs of the quotient at a prove's coset: (AIR, public values,
     trace domain, quotient coset, random Montgomery (m, width) trace on the
@@ -1108,6 +1195,17 @@ def expect_launches(name: str, launches: dict, want: dict) -> None:
         raise AssertionError(f"{name}: launches {got}, expected {want}")
 
 
+def expect_chain(name: str, launches: dict) -> None:
+    """The prove's FRI layers on the card took their betas from the device
+    transcript chain, one kernel launch a step (CHAIN_STEPS), and no
+    opening copied a whole padding matrix. A chain whose words differ from
+    the host challenger's replay raises in the prove itself."""
+    steps = CHAIN_STEPS[name]
+    expect_launches(name, launches, {"chain steps": steps, "transcript_step": steps, "values full": 0})
+    print(f"{name}: device transcript chain {steps} steps, each word equal to the host replay's; "
+          f"no whole padding matrix copied", flush=True)
+
+
 def kernel_rows(stats: dict, path_launches: dict) -> list:
     """The JSON line's rows, one per KERNELS entry: each headed by its
     first `shapes` entry (`record`), with each form's first entry under
@@ -1187,6 +1285,7 @@ def main() -> int:
     check_matmul_kernel(dev, stats)
     check_sha_kernels(dev, stats)
     check_bitrev_cols(dev, stats)
+    check_transcript_kernel(dev, stats)
 
     phase("commits: card vs host engine")
     check_commits_on_card(dev)
@@ -1202,7 +1301,8 @@ def main() -> int:
                                               ("blake3 sponge", Blake3SpongeChainAir(), 16))}
 
     phase("golden proof on cuda, and its script verifier")
-    run = prove_fibonacci(3, 2, 28, 8, dev, emit=True)
+    run, launches = run_counted(dev, lambda: prove_fibonacci(3, 2, 28, 8, dev, emit=True))
+    expect_chain("golden", launches)
     data, witness = run["data"], run["witness"]
     sha = hashlib.sha256(data).hexdigest()
     print(f"sha256 {sha} bytes {len(data)} witness {witness} prove {run['prove_s']:.3f} s "
@@ -1225,6 +1325,7 @@ def main() -> int:
     expect_launches("north star", launches, {"lde_inverse": 2, "dif_cols.cols": 2, "dif_cols.last": 2,
                                              "lde_forward": 2, "dit_cols.first": 2, "dit_cols.cols": 2,
                                              "quotient_program": segments["fibonacci"], "bit_reverse_cols": 1})
+    expect_chain("north star", launches)
 
     phase("2^22 prove on cuda (blocks LDE route)")
     launches = path_launches["prove 2^22"] = run_prove("blocks route", dev, BLOCKS_PROVE, PROOF_2_22)
@@ -1238,6 +1339,7 @@ def main() -> int:
     expect_launches("2^22", launches, {"dif_cols.cols": 2, "dif_cols.last": 2, "dit_cols.first": 2,
                                        "dit_cols.cols": 2, "quotient_program": segments["fibonacci"],
                                        "bit_reverse_cols": 1})
+    expect_chain("blocks route", launches)
 
     phase("wide row on cuda: prove, verify, emit the script verifier")
     launches = path_launches["wide row"] = run_wide_row(dev)
@@ -1249,6 +1351,7 @@ def main() -> int:
     expect_launches("wide row", launches, {"lde_inverse": 2, "dif_cols.cols": 2, "dif_cols.last": 2,
                                            "lde_forward": 2, "dit_cols.first": 2, "dit_cols.cols": 2,
                                            "quotient_program": segments["wide row"], "bit_reverse_cols": 1})
+    expect_chain("wide row", launches)
 
     phase("blake3 sponge chain on cuda: 1024 compressions (the flagship), 64 (the JAX package's proof)")
     launches = path_launches["blake3 sponge"] = run_blake3(dev, BLAKE3, BLAKE3_PROOF, "blake3 sponge")
@@ -1261,7 +1364,9 @@ def main() -> int:
                                                 "lde_forward": 3, "dit_cols.first": 3, "dit_cols.cols": 3,
                                                 "quotient_program": segments["blake3 sponge"],
                                                 "bit_reverse_cols": 1})
-    run_blake3(dev, BLAKE3_64, BLAKE3_64_PROOF, "blake3 sponge 64", check=False)  # the JAX package's bytes
+    expect_chain("blake3 sponge", launches)
+    launches = run_blake3(dev, BLAKE3_64, BLAKE3_64_PROOF, "blake3 sponge 64", check=False)  # the JAX package's bytes
+    expect_chain("blake3 sponge 64", launches)
     check_quotient_kernel(dev, stats)
 
     loaded = [

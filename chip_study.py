@@ -1,7 +1,7 @@
 """Longer measurements of the PyTorch/CUDA port on one GPU.
 
     python3 chip_study.py [kernels | sass | routes | device | suffix | busy | peak | wide | fri_tail | quotient
-                           | segments | spans | gather | blake3 ...]
+                           | segments | spans | transcript | gather | blake3 ...]
 
 `chip_smoke.py` checks the port; this script measures what it leaves
 out, for PERF.md (every phase, or the phases named):
@@ -33,7 +33,9 @@ out, for PERF.md (every phase, or the phases named):
   kernels' device time at the provers' cosets, for each S of
   SEGMENT_STUDY;
 - each prove's spans warm (2^20, 2^22, the wide row, the flagship), a
-  second prove under chip_smoke.py's counters;
+  second prove under chip_smoke.py's counters and a third with spans off;
+- the FRI transcript step (`transcript_step`) at the provers' root
+  counts: its event time and its own device time;
 - the gather that gives the quotient its coset (`get_evaluations_on_domain`):
   by columns (the card's kernel) against by rows and against one
   index_select, at the provers' cosets;
@@ -148,6 +150,23 @@ def device_times(dev) -> None:
     evals = smoke._mont_on(dev, rng, 1 << 20, 2)
     _device_line("limb-matmul LDE 2^20 x 2 blowup 4", lambda: mm.coset_lde_batch_matmul(evals, 2, shift), 5,
                  "matmul")
+
+
+def transcript_times(dev) -> None:
+    """`transcript_step` (csrc/transcript.cu) at the provers' root counts
+    (R 28 and 16, Blake3Compression, no pending words; roots read through
+    K6's strided view): its CUDA-event time and its own device time under
+    torch.profiler, 200 calls."""
+    from tapstark_torch.challenger import device_tail as dt
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    for reps in (28, 16):
+        cv, pending = torch.randint(0, 1 << 30, (8,), dtype=torch.int32, device=dev, generator=gen), \
+            torch.empty(0, dtype=torch.int32, device=dev)
+        roots = torch.randint(0, 1 << 30, (8, reps, 5), dtype=torch.int32, device=dev, generator=gen)[:, :, -1].T
+        _device_line(f"transcript_step R {reps}", lambda: dt.transcript_step(cv, pending, roots, dt.KIND_BLAKE3),
+                     200, "transcript")
 
 
 def _kernel_name(key: str) -> str:
@@ -537,14 +556,19 @@ def _prove_fibonacci(cfg: dict):
 def spans(dev) -> None:
     """Each prove's spans warm: 2^20, 2^22, the wide row and the flagship,
     each proved once to warm up (kernels built, the AIR's program recorded
-    and, where it is generated, built) and once under chip_smoke.py
-    run_counted (spans, launches, peak device memory)."""
+    and, where it is generated, built), once under chip_smoke.py
+    run_counted (spans, launches, peak device memory) and once with spans
+    off (a span synchronizes the card at its end, which hides work that
+    overlaps it), its peak device memory beside it."""
     cases = [("2^20", _prove_fibonacci(smoke.NORTH_STAR)), ("2^22", _prove_fibonacci(smoke.BLOCKS_PROVE)),
              ("wide row", prove_wide), ("flagship", prove_blake3)]
     for name, run in cases:
         run(dev)
         seconds, _ = smoke.run_counted(dev, lambda: run(dev))
-        print(f"spans {name}: warm prove {seconds:.3f} s", flush=True)
+        torch.cuda.reset_peak_memory_stats(dev)
+        off = run(dev)
+        print(f"spans {name}: warm prove {seconds:.3f} s; spans off {off:.3f} s, peak device memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB", flush=True)
 
 
 _flagship: dict = {}
@@ -601,6 +625,7 @@ PHASES = {  # name: (title, what runs); `python3 chip_study.py [name ...]` runs 
                  segments),
     "gather": ("the quotient's coset gather: by columns against by rows", gather),
     "spans": ("each prove's spans, warm: 2^20, 2^22, the wide row, the flagship", spans),
+    "transcript": ("the FRI transcript step's device time (torch.profiler)", transcript_times),
     "blake3": ("the flagship's prove: busy share and peak device memory, by span; its proof's bytes",
                lambda dev: [busy_share(dev, "blake3 sponge", prove_blake3),
                             peak_memory(dev, "blake3 sponge", prove_blake3)]),

@@ -71,6 +71,8 @@ SIGNATURES = {
     "tapstark_matmul_constants": ([_ptr], _i32),
     "tapstark_mod_matmul": ([_ptr, _ptr, _ptr, _i64, _ptr, _i32, _i64, _i32, _ptr], _i32),
     "tapstark_bitrev_cols": ([_ptr, _i32, _i32, _ptr, _ptr], _i32),
+    "tapstark_transcript_constants": ([_ptr], None),
+    "tapstark_transcript_step": ([_ptr, _ptr, _i32, _ptr, _i32, _i64, _i64, _i32, _ptr, _ptr], _i32),
 }
 
 
@@ -110,6 +112,13 @@ def _check_constants(lib: ctypes.CDLL) -> None:
         raise RuntimeError(f"limb-matmul kernel constants {list(mm)} differ from the host's")
     if lib.tapstark_ntt_cols_max_log_r() != MAX_LOG_R:
         raise RuntimeError("column-NTT kernel's largest log R differs from cols_ntt.MAX_LOG_R")
+    from .field.constants import R2_MOD_P
+    from .hashes.blake3 import IV
+
+    tr = (ctypes.c_uint32 * 9)()
+    lib.tapstark_transcript_constants(tr)
+    if list(tr) != [R2_MOD_P, *IV]:
+        raise RuntimeError(f"transcript kernel constants {list(tr)} differ from the host's")
 
 
 def compile_library(srcs: list[str], so_path: str, flags: list[str] = ()) -> list[float]:

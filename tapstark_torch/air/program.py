@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import pickle
 from dataclasses import dataclass
 
 import numpy as np
@@ -266,9 +267,11 @@ _programs: dict = {}
 
 
 def program_for(air, num_public: int) -> Program:
-    """The AIR's program, recorded on first use and cached per (class,
-    width, number of public values)."""
-    key = (type(air).__qualname__, air.width(), num_public)
+    """The AIR's program, recorded on first use and cached per (class
+    object, the instance's state, width, number of public values): two
+    classes of one name, or two instances whose attributes differ, get
+    programs of their own."""
+    key = (type(air), pickle.dumps(vars(air)), air.width(), num_public)
     prog = _programs.get(key)
     if prog is None:
         rec = ProgramRecorder(air, num_public)

@@ -16,9 +16,13 @@
   the fourth reaches device memory;
 - the TapBranch levels above it hash in natural node order, several per
   launch (`tapbranch_levels`, K6's counterpart); only the root and the
-  levels >= the cutoff are kept and come to the host (the sparse layout of
+  levels >= the cutoff are kept (the sparse layout of
   native.tcs_commit_sparse_native, so openings reuse the host leaf-block
-  rebuild).
+  rebuild);
+- the kept levels and the padding matrix stay where they were made
+  (`DeviceUppers`, `DeviceValues`): an opening copies its path and its
+  2^cutoff-row leaf block, and the FRI prover copies every opening's in
+  one copy.
 
 On a CUDA tensor the hashing runs on the card's kernels, on a CPU tensor
 through their plain versions. The suffix builder is plain torch on both.
@@ -247,25 +251,193 @@ def roots_to_bytes(roots_np: np.ndarray) -> list[bytes]:
     ]
 
 
-def fetch_trees(groups: list, n: int, cutoff: int) -> list:
-    """[(roots, uppers) of shard_trees_rep_group] -> per group, per
-    repetition: (root bytes, [(n >> l, 32) uint8 arrays for l in
-    [cutoff, depth)]), the upper levels SparseNativeTaptree reads. One
-    device-to-host copy for all groups."""
-    parts = [t.reshape(-1) for pair in groups for t in pair]
-    host = torch.cat(parts).cpu().numpy().view(np.uint32)
-    pieces = np.split(host, np.cumsum([p.numel() for p in parts])[:-1])
+def to_host(tensors: list[torch.Tensor]) -> list[np.ndarray]:
+    """int32 tensors of one device -> uint32 numpy arrays of their shapes, in
+    ONE device-to-host copy: flattened and concatenated where they live,
+    copied into one pinned buffer on the card (a plain copy on the CPU)."""
+    if not tensors:
+        return []
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    if flat.device.type == "cuda":
+        host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+        host.copy_(flat)
+    else:
+        host = flat
+    words = host.numpy().view(np.uint32)
+    sizes = np.cumsum([t.numel() for t in tensors])[:-1]
+    return [a.reshape(t.shape) for a, t in zip(np.split(words, sizes), tensors)]
+
+
+def shard_trees_rep_group_async(
+    suffix_words: torch.Tensor, midstates: np.ndarray, rem_words: np.ndarray, cutoff: int
+):
+    """`shard_trees_rep_group` with nothing copied to the host: returns
+    (roots (R, 8) on the card, DeviceUppers over the kept levels). The
+    caller copies the roots of every rep-group of a commit in one copy
+    (or, in the FRI commit phase, hands them to the device transcript
+    chain first); openings gather their paths from the DeviceUppers."""
+    n = suffix_words.shape[1]
+    roots, uppers = shard_trees_rep_group(suffix_words, midstates, rem_words, cutoff)
+    return roots, DeviceUppers(uppers, n, cutoff)
+
+
+def _upper_offsets(n: int, cutoff: int) -> list[int]:
+    """Offset along T of each kept level l in [cutoff, depth) in the
+    concatenated uppers (level l holds n >> l nodes)."""
     depth = max((n - 1).bit_length(), 0)
-    sizes = [n >> l for l in range(cutoff, depth)]
-    out = []
-    for roots_w, uppers_w in zip(pieces[0::2], pieces[1::2]):
-        roots = roots_to_bytes(roots_w.reshape(-1, 8))
-        uppers = uppers_w.reshape(len(roots), -1, 8).astype(">u4").view(np.uint8)
-        offs = np.cumsum([0] + sizes)
-        out.append(
-            [
-                (root, [uppers[j, a:b].reshape(-1, 32) for a, b in zip(offs[:-1], offs[1:])])
-                for j, root in enumerate(roots)
-            ]
-        )
-    return out
+    return np.cumsum([0] + [n >> l for l in range(cutoff, depth)])[:-1].tolist()
+
+
+def _nodes_to_bytes(nodes: np.ndarray) -> list[bytes]:
+    """(L, 8) uint32 big-endian digest words -> L x 32-byte hashes."""
+    b = np.ascontiguousarray(nodes.astype(">u4")).view(np.uint8).reshape(-1, 32)
+    return [bytes(row) for row in b]
+
+
+class DeviceUppers:
+    """The kept levels of one shard's rep-group, left where they were hashed.
+
+    An opening reads depth - cutoff sibling nodes of one repetition (each
+    repetition's tree serves one FRI query), so copying whole levels to the
+    host moves ~32 B · n / 2^cutoff per repetition for ~32 B · log n.
+    Openings gather their path where the levels live instead; the FRI
+    prover plans every query's gathers and copies them in one
+    (`tcs.materialize_path_plans`)."""
+
+    def __init__(self, flat: torch.Tensor, n: int, cutoff: int):
+        self.flat = flat  # (R, T, 8) int32, levels in natural node order along T
+        self.n = n
+        self.cutoff = cutoff
+        self.depth = max((n - 1).bit_length(), 0)
+        self.offsets = _upper_offsets(n, cutoff)
+        self._offs = torch.tensor(self.offsets, dtype=torch.int64).to(flat.device)
+        self._levels = torch.arange(cutoff, self.depth, dtype=torch.int64).to(flat.device)
+
+    def view(self, rep: int) -> "DeviceUppersPath":
+        return DeviceUppersPath(self, rep)
+
+    def gather(self, rep: int, i: int) -> torch.Tensor:
+        """(depth - cutoff, 8) sibling nodes of leaf i's path, gathered where
+        the levels live: level l's sibling is node ((i >> l) ^ 1) of it (the
+        port's levels are in natural order; the JAX package's are
+        bit-reversed)."""
+        nodes = self._offs + ((i >> self._levels) ^ 1)
+        return self.flat[rep].index_select(0, nodes)
+
+
+class DeviceUppersPath:
+    """One repetition's path accessor, the `upper_levels` of a
+    SparseNativeTaptree: plan(i) gathers leaf i's siblings above the
+    cutoff without copying them, materialize(i, words) takes the copy,
+    path_bytes(i) returns them (gathered and copied alone if unplanned)."""
+
+    def __init__(self, group: DeviceUppers, rep: int):
+        self._g = group
+        self._rep = rep
+        self._pending: dict[int, torch.Tensor] = {}
+        self._cache: dict[int, list[bytes]] = {}
+
+    def plan(self, i: int) -> torch.Tensor | None:
+        """The gather of leaf i's path (on the card, not yet copied), or None
+        when it is planned or copied already or the tree keeps no level."""
+        if i in self._cache or i in self._pending or not self._g.offsets:
+            return None
+        h = self._pending[i] = self._g.gather(self._rep, i)
+        return h
+
+    def materialize(self, i: int, words: np.ndarray) -> None:
+        self._pending.pop(i, None)
+        self._cache[i] = _nodes_to_bytes(words)
+
+    def path_bytes(self, i: int) -> list[bytes]:
+        if i not in self._cache:
+            if not self._g.offsets:
+                return []
+            h = self._pending.pop(i, None)
+            if h is None:
+                h = self._g.gather(self._rep, i)
+            self._cache[i] = _nodes_to_bytes(to_host([h])[0])
+        return self._cache[i]
+
+
+class DeviceValues:
+    """A commit's canonical padding matrix (N, K, L) int32, kept where it was
+    built through the openings. An opening reads one 2^cutoff-row block
+    per (query, commit): the rows its leaf-block rebuild hashes, the opened
+    row among them. plan_tuple(i) names that block (a slice, not yet
+    copied); the FRI prover copies every planned block and path in one
+    (`tcs.materialize_path_plans`). `full()` copies the whole matrix, a
+    fallback no prove takes: `full_calls` counts it."""
+
+    full_calls = 0
+
+    def __init__(self, vals: torch.Tensor, cutoff: int):
+        self.dev = vals
+        self.n = int(vals.shape[0])
+        self.block = min(1 << cutoff, self.n) if self.n else 1
+        self._pending: dict[int, torch.Tensor] = {}
+        self._cache: dict[int, np.ndarray] = {}
+        self._full: np.ndarray | None = None
+
+    def _base(self, i: int) -> int:
+        return (int(i) // self.block) * self.block
+
+    def plan_tuple(self, i: int):
+        """(self, base, block) for `tcs.materialize_path_plans`, or None when
+        the block of row i is planned or copied already."""
+        base = self._base(i)
+        if self._full is not None or base in self._cache or base in self._pending:
+            return None
+        h = self._pending[base] = self.dev[base : base + self.block]
+        return (self, base, h)
+
+    def materialize(self, base: int, words: np.ndarray) -> None:
+        self._pending.pop(base, None)
+        self._cache[base] = words
+
+    def _block(self, base: int) -> np.ndarray:
+        if self._full is not None:
+            return self._full[base : base + self.block]
+        if base not in self._cache:
+            h = self._pending.pop(base, None)
+            if h is None:
+                h = self.dev[base : base + self.block]
+            self._cache[base] = to_host([h])[0]
+        return self._cache[base]
+
+    def full(self) -> np.ndarray:
+        """The whole matrix on the host (counted in `full_calls`)."""
+        if self._full is None:
+            DeviceValues.full_calls += 1
+            self._full = to_host([self.dev])[0]
+        return self._full
+
+    def __getitem__(self, k):
+        if isinstance(k, (int, np.integer)):
+            base = self._base(k)
+            return self._block(base)[int(k) - base]
+        return self.full()[k]
+
+    def shard(self, lo: int, hi: int) -> "DeviceValuesShard":
+        return DeviceValuesShard(self, lo, hi)
+
+
+class DeviceValuesShard:
+    """Columns [lo, hi) of a DeviceValues, the `values_shard` of a
+    SparseNativeTaptree: a row, or a slice inside one block, comes from
+    that block; anything else from `full()`."""
+
+    def __init__(self, dv: DeviceValues, lo: int, hi: int):
+        self._dv = dv
+        self._lo, self._hi = lo, hi
+
+    def __getitem__(self, k):
+        if isinstance(k, slice) and k.step is None:
+            start = k.start or 0
+            base = self._dv._base(start)
+            if k.stop is not None and k.stop <= base + self._dv.block:
+                blk = self._dv._block(base)
+                return np.ascontiguousarray(blk[start - base : k.stop - base, self._lo : self._hi])
+        if isinstance(k, (int, np.integer)):
+            return self._dv[k][self._lo : self._hi]
+        return np.ascontiguousarray(self._dv.full()[k, self._lo : self._hi])

@@ -48,6 +48,14 @@ class TapTreeMmcs:
     def commit_matrix(self, m: FMatrix):
         return self.commit([m])
 
+    def commit_matrix_deferred(self, m: FMatrix):
+        """The commit of a matrix that carries a tensor, its roots not
+        copied (the FRI commit phase's device transcript chain): a
+        tcs.DeferredDeviceCommit whose finalize(fetched) gives the
+        prover_data list, or None when `m` has no tensor."""
+        assert m.ext == self.ext
+        return self.tcs.commit_poly_deferred([m], self.num_queries)
+
     def open_batch(
         self, query_times_index: int, query_index: int, prover_data: list[CommitedData]
     ):
@@ -56,7 +64,8 @@ class TapTreeMmcs:
         FMatrix host copies: the padding matrix interleaves matrices
         tallest-first with rows repeated, so leaf `query_index` holds row
         `query_index >> (log_max - log_h)` of every matrix — and reading
-        the leaf row reads the one host copy the commitment keeps."""
+        the leaf row reads the commitment's own copy: its host matrix, or
+        the one leaf block copied from the card (device_commit.DeviceValues)."""
         data0 = prover_data[0]
         heights = [m.height for m in data0.leaves]
         assert heights == sorted(heights, reverse=True), (

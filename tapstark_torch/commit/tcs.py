@@ -25,7 +25,10 @@ runs in the native C++ engine (tapstark_torch.native) — the role the
 reference fills with native Rust; a failed engine build raises.
 Matrices that carry a torch tensor hash their trees where the tensor lives
 instead (commit/device_commit.py: the CUDA kernels on the card, their plain
-versions on the CPU). Leaf scripts are reconstructed lazily for openings.
+versions on the CPU), and their leaf values and upper tree levels stay
+there: an opening copies its leaf block and path, and the FRI prover plans
+every opening's and copies them in one (`materialize_path_plans`). Leaf
+scripts are reconstructed lazily for openings.
 
 Matrices are numpy arrays of CANONICAL u32 limbs: base field (h, w),
 extension field (h, w, 4).
@@ -57,20 +60,46 @@ class FMatrix:
     `dev` optionally carries the same matrix as a torch tensor of Montgomery
     words (int32), on any device: a commit of matrices that all carry one
     hashes its trees where that tensor lives (commit/device_commit.py). The
-    canonical host copy is fetched from it on first use when not given."""
+    canonical host copy is fetched from it on first use when not given, or,
+    for `FMatrix.lazy`, started at once and joined on first use."""
 
     def __init__(self, values: np.ndarray | None = None, dev=None):
         if values is None and dev is None:
             raise ValueError("FMatrix needs host values or a device tensor")
         self._values = values
         self.dev = dev
+        self._copy = None  # (pinned host tensor, CUDA event) of a lazy copy
+
+    @classmethod
+    def lazy(cls, dev: torch.Tensor) -> "FMatrix":
+        """A matrix whose canonical host copy starts now: on the card a
+        non-blocking copy into pinned host memory, joined (its event
+        synchronized) at `.values`; on the CPU a plain copy."""
+        from ..field.device import fetch_canonical, from_mont
+
+        m = cls(dev=dev)
+        if dev.device.type != "cuda":
+            m._values = fetch_canonical(dev)
+            return m
+        canon = from_mont(dev)
+        host = torch.empty(canon.shape, dtype=canon.dtype, pin_memory=True)
+        host.copy_(canon, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(dev.device))
+        m._copy = (host, done)
+        return m
 
     @property
     def values(self) -> np.ndarray:
         if self._values is None:
-            from ..field.device import fetch_canonical
+            if self._copy is not None:
+                host, done = self._copy
+                done.synchronize()
+                self._values, self._copy = host.numpy().view(np.uint32), None
+            else:
+                from ..field.device import fetch_canonical
 
-            self._values = fetch_canonical(self.dev)
+                self._values = fetch_canonical(self.dev)
         return self._values
 
     @property
@@ -305,6 +334,17 @@ class SparseNativeTaptree:
             self._head, self._fixed_len, i, self._values[i]
         )
 
+    def plan_path(self, logical_index: int):
+        """A tree whose levels stay on the card (DeviceUppersPath): gather
+        the path above the cutoff without copying it, for
+        `materialize_path_plans`. Returns (path view, index, gathered
+        tensor), or None (host trees, or the path planned already)."""
+        plan = getattr(self._upper, "plan", None)
+        if plan is None:
+            return None
+        h = plan(logical_index)
+        return (self._upper, logical_index, h) if h is not None else None
+
     def get_tapleaf(self, logical_index: int) -> LeafNode:
         from .. import native
 
@@ -324,8 +364,12 @@ class SparseNativeTaptree:
         branch = [
             bytes(sub[l][(((i - base) >> l) ^ 1)]) for l in range(cutoff)
         ]
-        for l in range(cutoff, depth):
-            branch.append(bytes(self._upper[l - cutoff][(i >> l) ^ 1]))
+        path_bytes = getattr(self._upper, "path_bytes", None)
+        if path_bytes is not None:  # levels on the card: one path's gather
+            branch.extend(path_bytes(i))
+        else:
+            for l in range(cutoff, depth):
+                branch.append(bytes(self._upper[l - cutoff][(i >> l) ^ 1]))
         return LeafNode(
             script=self._script_fn(i),
             leaf_hash=bytes(sub[0][i - base]),
@@ -339,7 +383,7 @@ class CommitedData:
     trees: list  # one SparseNativeTaptree per column shard
     use_bcs_list: list[UseBComm]  # one per shard
     bounds: list[tuple[int, int]]  # column range per shard
-    values_np: np.ndarray
+    values_np: "np.ndarray"  # or device_commit.DeviceValues (left on the card)
 
     @property
     def commit_taptree(self):
@@ -364,6 +408,23 @@ class CommitedData:
     def leaf_limbs(self, i: int) -> list[list[int]]:
         return [[int(x) for x in v] for v in self.values_np[i]]
 
+    def plan_query(self, query_index: int) -> list:
+        """The gathers an opening of `query_index` reads, for
+        `materialize_path_plans`: its leaf block where the values stay on
+        the card (DeviceValues) and its path in every shard tree whose
+        levels stay there. Host-built commits plan nothing."""
+        plans = []
+        plan_vals = getattr(self.values_np, "plan_tuple", None)
+        if plan_vals is not None:
+            p = plan_vals(query_index)
+            if p is not None:
+                plans.append(p)
+        for tree in self.trees:
+            p = tree.plan_path(query_index)
+            if p is not None:
+                plans.append(p)
+        return plans
+
     def query_proof(self, query_index: int):
         proofs = [
             CommitedProof(
@@ -376,6 +437,49 @@ class CommitedData:
         if len(proofs) == 1:
             return proofs[0]
         return ShardedCommitedProof(shards=proofs)
+
+
+class DeferredDeviceCommit:
+    """A commit hashed where its matrices live whose roots have not been
+    copied: one (R_g, 8) root tensor per (shard, rep-group), in dispatch
+    order. The FRI prover's device transcript chain reads them where they
+    are (challenger/device_tail.py); `finalize` builds the CommitedData
+    list from their copy, which the prover makes once for every deferred
+    layer (fri/prover.py, flush)."""
+
+    def __init__(self, root_handles: list, num_shards: int, finalize_fn):
+        self.root_handles = root_handles
+        self.num_shards = num_shards
+        self._finalize = finalize_fn
+        self._done = None
+
+    @property
+    def num_groups(self) -> int:
+        return len(self.root_handles)
+
+    def roots_rep_order_dev(self) -> torch.Tensor:
+        """(R, 8) root words of every repetition in order (a one-shard
+        commit's rep-groups follow the repetitions)."""
+        if self.num_shards != 1:
+            raise ValueError("a sharded commit has no single root order")
+        if len(self.root_handles) == 1:
+            return self.root_handles[0]
+        return torch.cat(self.root_handles)
+
+    def finalize(self, fetched: list) -> list[CommitedData]:
+        """fetched: the (R_g, 8) uint32 root words of each rep-group."""
+        if self._done is None:
+            self._done = self._finalize(fetched)
+        return self._done
+
+
+def materialize_path_plans(plans: list) -> None:
+    """Copy every planned gather (`CommitedData.plan_query`: leaf blocks and
+    paths) to the host in ONE copy, and hand each view its words."""
+    from .device_commit import to_host
+
+    for (view, key, _), words in zip(plans, to_host([h for _, _, h in plans])):
+        view.materialize(key, words)
 
 
 def _leaf_witness(use_bcs: UseBComm, index: int, values: list[list[int]]) -> list[bytes]:
@@ -469,14 +573,27 @@ class TCS:
         secrets). When every matrix carries a torch tensor the tapleaf/branch
         hashing runs where it lives (_commit_device); otherwise the native
         tree builds release the GIL and run on a thread pool."""
+        return self._commit_common(matrices, total_query_times, defer=False)
+
+    def commit_poly_deferred(self, matrices: list[FMatrix], total_query_times: int):
+        """The commit of matrices that all carry a tensor, without copying
+        its roots: a DeferredDeviceCommit (the FRI commit phase's device
+        transcript chain reads the roots where they are). None when a
+        matrix has no tensor (the caller commits synchronously)."""
+        return self._commit_common(matrices, total_query_times, defer=True)
+
+    def _commit_common(self, matrices, total_query_times, defer: bool):
+        on_device = all(isinstance(m.dev, torch.Tensor) for m in matrices)
+        if defer and not on_device:
+            return None
         ext = matrices[0].ext
         bounds = shard_bounds(sum(m.width for m in matrices))
         with span("tcs/assign-keygen"):
             assignments = [
                 self._assign_rep(bounds, ext) for _ in range(total_query_times)
             ]
-        if all(isinstance(m.dev, torch.Tensor) for m in matrices):
-            return self._commit_device(matrices, assignments, bounds)
+        if on_device:
+            return self._commit_device(matrices, assignments, bounds, defer)
         with span("tcs/padding-matrix"):
             values_np = padding_matrix_np(matrices)
         if total_query_times > 1:
@@ -490,29 +607,31 @@ class TCS:
         with span("tcs/tree-builds"):
             return [self._build(matrices, values_np, a, bounds) for a in assignments]
 
-    def _commit_device(self, matrices, assignments, bounds):
+    def _commit_device(self, matrices, assignments, bounds, defer=False):
         """Tree builds where the matrices' tensors live: the padding matrix
-        built there and copied to the host once (the openings' leaf values);
-        per shard, the repetition-independent leaf suffix words once; then
-        per rep-group every repetition's tapleaf compressions from its own
-        head midstate with the first TapBranch levels (one tapleaf_subtrees
-        launch) and the levels above them (tapbranch_levels, several levels
-        a launch). The roots and the levels at or above the cutoff of
-        the whole commit come to the host in one copy. They are
-        byte-identical to the host engine's, so openings rebuild their leaf
-        block on the host as before (SparseNativeTaptree)."""
+        built there and left there (DeviceValues: openings copy their leaf
+        blocks); per shard, the repetition-independent leaf suffix words
+        once; then per rep-group every repetition's tapleaf compressions
+        from its own head midstate with the first TapBranch levels (one
+        tapleaf_subtrees launch) and the levels above them
+        (tapbranch_levels, several levels a launch), the kept levels left
+        there too (DeviceUppers: openings gather their paths). The roots of
+        the whole commit come to the host in one copy, or, with `defer`,
+        stay there: a DeferredDeviceCommit. Roots and openings are
+        byte-identical to the host engine's (SparseNativeTaptree rebuilds
+        each opening's leaf block on the host from the copied block)."""
         from . import device_commit as dc
 
         dev = matrices[0].dev.device
         reps = len(assignments)
         with span("tcs/dev-padding-matrix", dev):
             vals_dev = dc.padding_matrix_dev(matrices)
-            values_np = vals_dev.cpu().numpy().view(np.uint32)
-        n = values_np.shape[0]
+        n = vals_dev.shape[0]
         depth = max((n - 1).bit_length(), 0)
         cutoff = min(LEVEL_CUTOFF, depth)
+        dvals = dc.DeviceValues(vals_dev, cutoff)
         group = max(1, min(reps, _DEVICE_GROUP_LANES // n))
-        dispatched = []  # (shard, first rep, (roots, uppers) on the card)
+        dispatched = []  # (shard, first rep, roots, DeviceUppers), on the card
         for s, (lo, hi) in enumerate(bounds):
             heads = [assignments[r][s][1] for r in range(reps)]
             fixed0 = assignments[0][s][2]
@@ -529,31 +648,36 @@ class TCS:
             for g0 in range(0, reps, group):
                 g1 = min(g0 + group, reps)
                 with span("tcs/dev-trees", dev):
-                    trees = dc.shard_trees_rep_group(
+                    roots, uppers = dc.shard_trees_rep_group_async(
                         suffix, mids[g0:g1], remws[g0:g1], cutoff
                     )
-                dispatched.append((s, g0, trees))
-        with span("tcs/dev-fetch", dev):
-            fetched = dc.fetch_trees([d[2] for d in dispatched], n, cutoff)
+                dispatched.append((s, g0, roots, uppers))
 
-        shards = [np.ascontiguousarray(values_np[:, lo:hi]) for lo, hi in bounds]
-        trees_by_rep = [[None] * len(bounds) for _ in range(reps)]
-        for (s, g0, _), per_rep in zip(dispatched, fetched):
-            for j, (root, upper) in enumerate(per_rep):
-                _, head, fixed_len = assignments[g0 + j][s]
-                trees_by_rep[g0 + j][s] = SparseNativeTaptree(
-                    root, upper, n, head, fixed_len, shards[s]
+        def finalize(fetched):
+            shards = [dvals.shard(lo, hi) for lo, hi in bounds]
+            trees_by_rep = [[None] * len(bounds) for _ in range(reps)]
+            for (s, g0, _, uppers), roots_np in zip(dispatched, fetched):
+                for j, root in enumerate(dc.roots_to_bytes(roots_np)):
+                    _, head, fixed_len = assignments[g0 + j][s]
+                    trees_by_rep[g0 + j][s] = SparseNativeTaptree(
+                        root, uppers.view(j), n, head, fixed_len, shards[s]
+                    )
+            return [
+                CommitedData(
+                    leaves=matrices,
+                    trees=trees_by_rep[r],
+                    use_bcs_list=[assignments[r][s][0] for s in range(len(bounds))],
+                    bounds=bounds,
+                    values_np=dvals,
                 )
-        return [
-            CommitedData(
-                leaves=matrices,
-                trees=trees_by_rep[r],
-                use_bcs_list=[assignments[r][s][0] for s in range(len(bounds))],
-                bounds=bounds,
-                values_np=values_np,
-            )
-            for r in range(reps)
-        ]
+                for r in range(reps)
+            ]
+
+        if defer:
+            return DeferredDeviceCommit([d[2] for d in dispatched], len(bounds), finalize)
+        with span("tcs/dev-fetch", dev):
+            fetched = dc.to_host([d[2] for d in dispatched])
+        return finalize(fetched)
 
     def open_with_one_query(
         self, query_times_index: int, query_index: int, prover_data: list[CommitedData]

@@ -119,10 +119,13 @@ def _open_height(natural, mat, weights, zs, scales, xs, invd):
 
 
 class TwoAdicFriPcs:
-    def __init__(self, mmcs: TapTreeMmcs, fri: FriConfig, device):
+    def __init__(self, mmcs: TapTreeMmcs, fri: FriConfig, device, device_chain: bool = True):
         self.mmcs = mmcs  # base-field input mmcs
         self.fri = fri
         self.device = torch.device(device)
+        # False: every FRI layer's beta is sampled on the host (the same
+        # bytes; fri/prover.py, the device transcript chain)
+        self.device_chain = device_chain
 
     def natural_domain_for_degree(self, degree: int) -> TwoAdicMultiplicativeCoset:
         return TwoAdicMultiplicativeCoset(log_n=log2_strict(degree), shift=1)
@@ -255,18 +258,31 @@ class TwoAdicFriPcs:
 
         fri_input = [reduced_openings[lh] for lh in sorted(reduced_openings, reverse=True)]
 
+        def reduced_index(data, query_index):
+            log_max_height = log2_strict(self.mmcs.get_max_height(data.commited))
+            return query_index >> (log_global_max_height - log_max_height)
+
         def open_input(query_times_index, query_index):
             out = []
             for data, _ in rounds:
-                log_max_height = log2_strict(self.mmcs.get_max_height(data.commited))
-                reduced = query_index >> (log_global_max_height - log_max_height)
                 opened_values, opening_proof = self.mmcs.open_batch(
-                    query_times_index, reduced, data.commited
+                    query_times_index, reduced_index(data, query_index), data.commited
                 )
                 out.append(BatchOpening(opened_values=opened_values, opening_proof=opening_proof))
             return out
 
-        fri_proof = fri_prover.bf_prove(self.fri, fri_input, challenger, open_input)
+        def plan_input(query_times_index, query_index):
+            # the input rounds' gathers of this query, copied with the
+            # layers' in one copy by the FRI prover
+            return [
+                p
+                for data, _ in rounds
+                for p in data.commited[query_times_index].plan_query(reduced_index(data, query_index))
+            ]
+
+        fri_proof = fri_prover.bf_prove(
+            self.fri, fri_input, challenger, open_input, plan_input=plan_input, device_chain=self.device_chain
+        )
         return all_opened_values, fri_proof
 
     def _compute_inverse_denominators(self, mats_and_points):

@@ -1,10 +1,11 @@
 // Stand-ins for the CUDA built-ins that tapstark_torch/csrc/dit_cols.cuh,
-// dif_cols.cuh, matmul_ntt.cuh and quotient.cuh (with the quotient's
-// generated segments) use, so that their kernels and helpers compile with
-// g++ and run on the host for the tests: one std::thread per CUDA thread,
-// one block at a time, a std::barrier for __syncthreads (see dit_host.cpp);
-// matmul_host.cpp runs the limb-matmul kernel's data flow, quotient_host.cpp
-// the quotient's segments, one after another.
+// dif_cols.cuh, matmul_ntt.cuh, quotient.cuh (with the quotient's
+// generated segments) and transcript.cu use, so that their kernels and
+// helpers compile with g++ and run on the host for the tests: one
+// std::thread per CUDA thread, one block at a time, a std::barrier for
+// __syncthreads (see dit_host.cpp); matmul_host.cpp runs the limb-matmul
+// kernel's data flow, quotient_host.cpp the quotient's segments, one after
+// another, transcript_host.cpp the transcript step's one thread.
 #pragma once
 #include <barrier>
 #include <cstddef>

@@ -144,6 +144,32 @@ def test_verifier_folders_match_jax():
         j_air.eval(j_folder)
         assert folder.accumulator.as_u32_vec() == j_folder.accumulator.as_u32_vec(), type(air).__name__
 
+    # The quotient program's cache: two AIR classes of one name, width and
+    # public count (as from two modules) with different constraints, and
+    # two instances of one class whose state differs, get programs of
+    # their own.
+    def twin_class(power: int):
+        class TwinAir(FibonacciAir):
+            def __init__(self, offset: int = 0):
+                self.offset = offset
+
+            def eval(self, builder):
+                local = builder.main().row(0)
+                term = local[0]
+                for _ in range(power - 1):
+                    term = term * local[0]
+                builder.assert_eq(term + F(self.offset), local[1])
+
+        return TwinAir
+
+    first, second = twin_class(1), twin_class(2)
+    assert first.__qualname__ == second.__qualname__
+    prog_a, prog_b = program_for(first(), 0), program_for(second(), 0)
+    assert prog_a.counts["mul"] != prog_b.counts["mul"]
+    prog_c = program_for(first(offset=5), 0)
+    assert not np.array_equal(prog_a.consts, prog_c.consts)
+    assert program_for(first(), 0) is prog_a
+
 
 def test_sponge_quotient_rows_match_jax_folder():
     """The port's quotient (on the CPU: the eager folder, the kernel's plain

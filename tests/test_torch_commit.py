@@ -153,8 +153,8 @@ def test_shard_trees_match_jax_and_host_taptree():
     plan = dc.ShardSuffixPlan(len(heads[0]), fixed_len)
     mids, rems = plan.head_midstates_batch(heads)
     suffix = dc.build_tail_suffix_words(_t(vals), plan)
-    roots, uppers = dc.shard_trees_rep_group(suffix, mids, rems, cutoff)
-    [per_rep] = dc.fetch_trees([(roots, uppers)], n, cutoff)
+    roots, uppers = dc.shard_trees_rep_group_async(suffix, mids, rems, cutoff)
+    root_bytes = dc.roots_to_bytes(_np(roots))
 
     jplan = jdc.ShardSuffixPlan(len(heads[0]), fixed_len)
     jmids, jrems = jplan.head_midstates_batch(heads)
@@ -163,16 +163,15 @@ def test_shard_trees_match_jax_and_host_taptree():
     # the JAX trees keep leaves in bit-reversed lane order
     jsuffix = jnp.asarray(_jax_suffix(vals[bitrev_indices(6)], jplan, bitrev_indices(6)))
     jroots, juppers = jdc.shard_trees_rep_group(jsuffix, jmids, jrems, cutoff)
-    assert [root for root, _ in per_rep] == jroots
+    assert root_bytes == jroots
     np.testing.assert_array_equal(_np(roots), np.stack([np.frombuffer(b, ">u4") for b in jroots]))
+    assert tuple(uppers.flat.shape) == (3, sum(n >> lvl for lvl in range(cutoff, 6)), 8)
 
     for r, head in enumerate(heads):
         t = build_taptree([_leaf_script_from_row(head, fixed_len, i, vals[i]) for i in range(n)])
-        root, levels = per_rep[r]
-        assert root == t.root_hash
-        assert [lv.shape for lv in levels] == [(n >> lvl, 32) for lvl in range(cutoff, 6)]
+        assert root_bytes[r] == t.root_hash
         for i in (0, 5, 37, n - 1):
-            above = [bytes(levels[lvl - cutoff][(i >> lvl) ^ 1]) for lvl in range(cutoff, 6)]
+            above = uppers.view(r).path_bytes(i)
             assert above == t.get_tapleaf(i).merkle_branch[cutoff:] == juppers.view(r).path_bytes(i)
 
 
@@ -235,14 +234,14 @@ def test_subtree_kernels_plain_match_chain_jax_and_host_taptree():
         kept = [chain[lv] for lv in range(cutoff, depth)]
         want = torch.cat(kept, dim=2) if kept else chain[depth][:, :, :0]
         assert torch.equal(uppers, want.permute(1, 2, 0))
-        [per_rep] = dc.fetch_trees([(roots, uppers)], n, cutoff)
+        root_bytes, paths = dc.roots_to_bytes(_np(roots)), dc.DeviceUppers(uppers, n, cutoff)
 
         if r > 1:  # the JAX trees (one compile per shape); they keep bit-reversed order
             jplan = jdc.ShardSuffixPlan(head_len, fixed_len)
             brv = bitrev_indices(depth)
             jsuffix = jnp.asarray(_jax_suffix(vals[brv], jplan, brv))
             jroots, juppers = jdc.shard_trees_rep_group(jsuffix, mids, rems, cutoff)
-            assert [root for root, _ in per_rep] == jroots, (n, nb, r)
+            assert root_bytes == jroots, (n, nb, r)
             jflat = np.asarray(juppers.flat)
             for lv, off in zip(range(cutoff, depth), juppers.offsets):
                 natural = jflat[:, off + bitrev_indices(depth - lv)]  # (R, n >> lv, 8)
@@ -250,12 +249,9 @@ def test_subtree_kernels_plain_match_chain_jax_and_host_taptree():
 
         for j, head in enumerate(heads):
             t = build_taptree([_leaf_script_from_row(head, fixed_len, i, vals[i]) for i in range(n)])
-            root, levels = per_rep[j]
-            assert root == t.root_hash
+            assert root_bytes[j] == t.root_hash
             for i in {0, n // 3, n - 1}:
-                assert [bytes(levels[lv - cutoff][(i >> lv) ^ 1]) for lv in range(cutoff, depth)] == (
-                    t.get_tapleaf(i).merkle_branch[cutoff:]
-                )
+                assert paths.view(j).path_bytes(i) == t.get_tapleaf(i).merkle_branch[cutoff:]
 
 
 def _leaf_bytes(proof):
@@ -266,15 +262,15 @@ def _open_all(datas, queries):
     return [[_leaf_bytes(d.query_proof(q)) for q in queries] for d in datas]
 
 
-@pytest.mark.parametrize(
-    "shapes",
-    [
-        [(64, 3)],  # one base-field matrix
-        [(32, 2, 4)],  # an FRI layer: (half, 2) extension values
-        [(64, 2), (16, 1)],  # two heights: rows repeat in the padding matrix
-        [(16, 41)],  # 41 values: two column shards
-    ],
-)
+TCS_SHAPES = [
+    [(64, 3)],  # one base-field matrix
+    [(32, 2, 4)],  # an FRI layer: (half, 2) extension values
+    [(64, 2), (16, 1)],  # two heights: rows repeat in the padding matrix
+    [(16, 41)],  # 41 values: two column shards
+]
+
+
+@pytest.mark.parametrize("shapes", TCS_SHAPES)
 def test_tcs_device_path_matches_host_paths(shapes):
     """The port's TCS on CPU tensors (the device path, through the kernels'
     plain versions) against its host path and the JAX package's host
@@ -297,6 +293,67 @@ def test_tcs_device_path_matches_host_paths(shapes):
         assert on_dev[1].leaf_limbs(q) == ref[1].leaf_limbs(q)
         proof, limbs = tcs.TCS(BcManager()).open_with_one_query(1, q, on_dev)
         assert tcs.TCS.verify_words(on_dev[1].root_words(), proof, limbs)
+
+
+def test_deferred_commit_and_path_plans_match(monkeypatch):
+    """At the shapes of test_tcs_device_path_matches_host_paths: the
+    deferred commit (roots left where they were hashed) finalized from one
+    copy of its roots gives the roots and openings of the synchronous
+    commit and of the JAX package's host commit; every opening's leaf
+    block and path, planned (`plan_query`) and copied by one
+    `materialize_path_plans`, gives the same leaf bytes with no further
+    copy; `DeviceValues.full()` is never reached."""
+    copies = []
+    real_to_host = dc.to_host
+
+    def counted(tensors):
+        copies.append(len(tensors))
+        return real_to_host(tensors)
+
+    monkeypatch.setattr(dc, "to_host", counted)
+    monkeypatch.setattr(tcs, "LEVEL_CUTOFF", 3)  # trees of 16-64 leaves keep levels above it
+    rng = np.random.default_rng(43)
+    reps, full_before = 2, dc.DeviceValues.full_calls
+    for shapes in TCS_SHAPES:
+        canon = [rng.integers(0, P, s).astype(np.uint32) for s in shapes]
+        for a in canon:
+            a.reshape(-1)[: len(EDGE)] = EDGE[: a.size]
+
+        def mats():
+            return [tcs.FMatrix(dev=_t(np_to_mont(a))) for a in canon]
+
+        sync = tcs.TCS(BcManager()).commit_poly_with_query_times(mats(), reps)
+        dfr = tcs.TCS(BcManager()).commit_poly_deferred(mats(), reps)
+        assert tcs.TCS(BcManager()).commit_poly_deferred([tcs.FMatrix(a) for a in canon], reps) is None
+        ref = JTCS(JBcManager()).commit_poly_with_query_times([JFMatrix(a) for a in canon], reps)
+        shards = len(tcs.shard_bounds(sum(s[1] for s in shapes)))
+        assert dfr.num_groups == shards  # one rep-group a shard at these sizes
+        fetched = dc.to_host(dfr.root_handles)
+        deferred = dfr.finalize(fetched)
+        assert dfr.finalize(None) is deferred
+        assert [d.root_words() for d in deferred] == [d.root_words() for d in sync] == [d.root_words() for d in ref]
+        if shards == 1:
+            np.testing.assert_array_equal(_np(dfr.roots_rep_order_dev()), fetched[0])
+        else:
+            with pytest.raises(ValueError):
+                dfr.roots_rep_order_dev()
+
+        n = shapes[0][0]
+        queries = [0, 1, n // 2 + 3, n - 1]
+        plans = [p for q in queries for d in deferred for p in d.plan_query(q)]
+        # a leaf block per distinct block (the repetitions share the values)
+        # and a path per (repetition, shard tree, query)
+        assert len(plans) == len({q >> 3 for q in queries}) + reps * shards * len(queries)
+        del copies[:]
+        tcs.materialize_path_plans(plans)
+        assert copies == [len(plans)]
+        opened = _open_all(deferred, queries)
+        limbs = [deferred[1].leaf_limbs(q) for q in queries]
+        assert copies == [len(plans)]  # the openings copied nothing more
+        assert opened == _open_all(sync, queries) == _open_all(ref, queries)
+        assert limbs == [ref[1].leaf_limbs(q) for q in queries]
+        assert not [p for q in queries for d in deferred for p in d.plan_query(q)]
+    assert dc.DeviceValues.full_calls == full_before
 
 
 def test_device_commit_group_split(monkeypatch):

@@ -110,17 +110,112 @@ def test_open_height_reduction_matches_jax():
     _same(_inv_denoms(tensor_from_mont_np(xs), tensor_from_mont_np(z)), _inv_denoms_jit(jnp.asarray(xs), jnp.asarray(z)))
 
 
-@pytest.mark.parametrize("log_half", [0, 3, 8])
-def test_fold_matches_jax(log_half):
-    rng = np.random.default_rng(23 + log_half)
-    m = _mont(rng, (1 << log_half, 2, 4))
-    beta_v = [int(v) for v in rng.integers(0, P, 4)]
-    beta = EF4(beta_v)
-    got = fold_matrix(ef_const(beta, "cpu"), tensor_from_mont_np(m))
-    _same(got, fold_matrix_jit(jnp.asarray(np_to_mont(np.array(beta_v, np.uint32))), jnp.asarray(m)))
-    canon = fetch_canonical(tensor_from_mont_np(m))
-    np.testing.assert_array_equal(fold_matrix_host(beta, canon), j_fold_matrix_host(JEF4(beta_v), canon))
-    np.testing.assert_array_equal(fold_matrix_host(beta, canon), fetch_canonical(got))
+def test_fold_matches_jax():
+    for log_half in (0, 3, 8):  # one item, not three: ROADMAP.md, the item count
+        rng = np.random.default_rng(23 + log_half)
+        m = _mont(rng, (1 << log_half, 2, 4))
+        beta_v = [int(v) for v in rng.integers(0, P, 4)]
+        beta = EF4(beta_v)
+        got = fold_matrix(ef_const(beta, "cpu"), tensor_from_mont_np(m))
+        _same(got, fold_matrix_jit(jnp.asarray(np_to_mont(np.array(beta_v, np.uint32))), jnp.asarray(m)))
+        canon = fetch_canonical(tensor_from_mont_np(m))
+        np.testing.assert_array_equal(fold_matrix_host(beta, canon), j_fold_matrix_host(JEF4(beta_v), canon))
+        np.testing.assert_array_equal(fold_matrix_host(beta, canon), fetch_canonical(got))
+
+
+def _chain_roots(rng, reps):
+    """(R, 8) big-endian SHA root words as the card holds them, and the
+    commitment the host observes (each root's LE words)."""
+    words = rng.integers(0, 2**32, (reps, 8), dtype=np.uint64).astype(np.uint32)
+    return words, [[int.from_bytes(int(w).to_bytes(4, "big"), "little") for w in row] for row in words]
+
+
+def _transcript_host_lib(tmp_path):
+    """csrc/transcript.cu built with g++ against tests/cuda_host_shim."""
+    import ctypes
+    import pathlib
+
+    here = pathlib.Path(__file__).parent
+    shim, csrc = here / "cuda_host_shim", here.parent / "tapstark_torch" / "csrc"
+    so = tmp_path / "libtranscript_host.so"
+    subprocess.run(["g++", "-std=c++20", "-O1", "-fPIC", "-shared", f"-I{shim}", f"-I{csrc}", "-o", str(so),
+                    str(shim / "transcript_host.cpp"), "-lpthread"], check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(so))
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.host_transcript_step.argtypes = [ptr, ptr, i32, ptr, i32, i64, i64, i32, ptr]
+    lib.tapstark_transcript_constants.argtypes = [ptr]
+    return lib
+
+
+def test_transcript_chain_matches_jax_and_host(tmp_path):
+    """The FRI device transcript chain (challenger/device_tail.py) on the
+    CPU, its plain step, against the host BfChallenger word for word (both
+    compressions, the pending lengths of tests/test_device_chain.py, R in
+    {3, 5, 28}, three layers) and against the JAX package's jitted chain at
+    tests/test_device_chain.py's R; `chain_supported`'s bounds; and the
+    kernel's own source (csrc/transcript.cu, built with g++ against
+    tests/cuda_host_shim, one thread) against the plain step, roots read
+    through K6's strided view."""
+    from tapstark.challenger import TestPermutation as JTestPermutation
+    from tapstark.challenger import device_tail as jdt
+    from tapstark_torch.challenger import Blake3Compression, TestPermutation
+    from tapstark_torch.challenger import device_tail as dt
+    from tapstark_torch.field.constants import R2_MOD_P
+    from tapstark_torch.field.device import np_from_mont
+    from tapstark_torch.hashes.blake3 import IV
+
+    pendings = {"blake3": ([], [3], list(range(8)), list(range(11))),
+                "test": ([], [123456789], list(range(8)), list(range(13)))}
+    for kind, jax_reps in (("blake3", 5), ("test", 3)):
+        for pend in pendings[kind]:
+            for reps in (3, 5, 28):
+                host = BfChallenger(permutation=TestPermutation() if kind == "test" else None)
+                jhost = JBfChallenger(permutation=JTestPermutation() if kind == "test" else None)
+                for w in pend:
+                    host.observe(w)
+                    jhost.observe(w)
+                chain = dt.DeviceTailChain(host)
+                jchain = jdt.DeviceTailChain(jhost) if reps == jax_reps else None
+                rng = np.random.default_rng(7 + reps + len(pend))
+                for _ in range(3):
+                    words, commitment = _chain_roots(rng, reps)
+                    beta_mont, beta_words = chain.step(tensor_from_mont_np(words))
+                    host.observe_commitment(commitment)
+                    beta = host.sample()
+                    popped = [int(x) for x in mont_np_from_tensor(beta_words)]
+                    assert popped == host.sample_input[-1], (kind, pend, reps)
+                    assert [int(x) for x in np_from_mont(mont_np_from_tensor(beta_mont))] == list(beta.c)
+                    if jchain is not None:
+                        j_mont, j_words = jchain.step(jnp.asarray(words))
+                        assert popped == [int(x) for x in np.asarray(j_words)], (kind, pend, reps)
+                        _same(beta_mont, j_mont)
+
+    assert dt.chain_supported(BfChallenger(), 28) and dt.chain_supported(BfChallenger(), 32)
+    assert not dt.chain_supported(BfChallenger(), 33)  # the digest would take two blake3 chunks
+    assert dt.chain_supported(BfChallenger(permutation=TestPermutation()), 4)
+
+    class Unknown(Blake3Compression):  # not one of the two compressions the kernel knows
+        pass
+
+    assert not dt.chain_supported(BfChallenger(permutation=Unknown()), 4)
+
+    lib = _transcript_host_lib(tmp_path)
+    consts = np.zeros(9, np.uint32)
+    lib.tapstark_transcript_constants(consts.ctypes.data)
+    assert consts.tolist() == [R2_MOD_P, *IV]
+    rng = np.random.default_rng(8)
+    for kind in (dt.KIND_BLAKE3, dt.KIND_TEST):
+        for k in (0, 3, 8, 11, 15):
+            for reps in (1, 3, 28, 32):
+                cv = rng.integers(0, 2**32, 8, dtype=np.uint64).astype(np.uint32)
+                pend = rng.integers(0, 2**32, k, dtype=np.uint64).astype(np.uint32)
+                level = rng.integers(0, 2**32, (8, reps, 5), dtype=np.uint64).astype(np.uint32)
+                roots = tensor_from_mont_np(level)[:, :, -1].T  # (R, 8), strides (5, 5R)
+                out = np.zeros(16, np.uint32)
+                lib.host_transcript_step(cv.ctypes.data, pend.ctypes.data, k, level.ctypes.data + 4 * 4, reps,
+                                         roots.stride(0), roots.stride(1), kind, out.ctypes.data)
+                want = dt.transcript_step_plain(tensor_from_mont_np(cv), tensor_from_mont_np(pend), roots, kind)
+                np.testing.assert_array_equal(out, np.concatenate([mont_np_from_tensor(t) for t in want]))
 
 
 def test_interpolation_matches_jax_host_reference():
@@ -198,13 +293,34 @@ def test_golden_proof_verifies_in_jax_package(golden):
     j_verify(ref_pcs, jairs.FibonacciAir(), JBfChallenger(), j_proof_from_bytes(data), j_pis)
 
 
-def test_golden_proof_commits_through_device_path(golden):
+def test_golden_proof_commits_through_device_path(golden, monkeypatch):
     """The trace and quotient commits took the device path (the kernels'
-    plain versions on the CPU): the PCS hands TCS its LDE tensors."""
+    plain versions on the CPU): the PCS hands TCS its LDE tensors. Then,
+    with every FRI layer on the device path (HOST_TAIL_MAX_HALF = 0), the
+    device transcript chain steps once a layer (3) and the proof is the
+    frozen one, and it is with the chain switched off too; no opening
+    copies a whole padding matrix (`DeviceValues.full`)."""
+    from tapstark_torch.challenger import device_tail
+    from tapstark_torch.commit.device_commit import DeviceValues
+    from tapstark_torch.fri import prover as fri_prover
+
     ref_pcs, pcs, pis, proof, data, commits = golden
     assert len(commits) == 2
     assert all(m.dev is not None and m.dev.device.type == "cpu" for ms in commits for m in ms)
     assert hashlib.sha256(data).hexdigest() == GOLDEN_PROOF_SHA256
+
+    monkeypatch.setattr(fri_prover, "HOST_TAIL_MAX_HALF", 0)
+    full_before = DeviceValues.full_calls
+    for chain, steps in ((True, 3), (False, 0)):
+        _, pcs, trace, pis = _golden_setup()
+        pcs.device_chain = chain
+        before = device_tail.TOTAL_STEPS
+        proof = prove(pcs, FibonacciAir(), BfChallenger(), trace, pis)
+        assert device_tail.TOTAL_STEPS - before == steps
+        data = proof_to_bytes(proof)
+        assert (hashlib.sha256(data).hexdigest(), len(data), proof.opening_proof.pow_witness) == (
+            GOLDEN_PROOF_SHA256, GOLDEN_PROOF_LEN, GOLDEN_POW_WITNESS)
+    assert DeviceValues.full_calls == full_before
 
 
 def test_wrong_public_values_rejected(golden):
