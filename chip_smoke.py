@@ -39,6 +39,13 @@ prove's FRI layers folded on the card take their betas from the device
 transcript chain (`transcript_step`, csrc/transcript.cu, held against its
 plain version in chains of 3 steps): the smoke asserts its steps in every
 prove (CHAIN_STEPS), and that no opening copied a whole padding matrix.
+Last, the phase "mesh" runs the device mesh on MESH_SHARDS shards of the
+one card: the distributed NTT, its inverse and coset LDE against one
+device's, the sharded prover step against its one-shard composition, the
+quotient segments on one shard's window of rows against their plain
+version, and the north-star prove through `standard_config(mesh=...)`
+held to the same frozen bytes, every shard's launches counted
+(`chip_study.py mesh` runs it across four cards).
 (`chip_study.py` holds the longer measurements: full-size kernel times,
 the two LDE routes at 2^22 and 2^23 rows, the NTT kernels' own device
 time, the card's busy share, the FRI host-tail switch.)
@@ -222,6 +229,21 @@ BITREV_SHAPES = [(1 << 17, 1548, 1 << 17), (1 << 22, 163, 1 << 18), (1 << 24, 2,
 # quotient degree), the flagship's first (the JSON row's)
 QUOTIENT_SHAPES = [("blake3 sponge", "sponge", 16), ("fibonacci 2^20", "fibonacci", 20),
                    ("fibonacci 2^22", "fibonacci", 22), ("wide row", "recursion", 18)]
+# the mesh phase: MESH_SHARDS shards, all on the card (every shard's kernels
+# and exchanges run, nothing crosses a link; chip_study.py mesh runs the
+# same checks across four cards). The distributed NTT and coset LDE at the
+# north star's trace (log_n, width, log_blowup); the sharded prover step at
+# 2^MESH_STEP_LOG_N trace rows (Fibonacci, blowup 2); `dit_cols` at its
+# per-shard shapes in the north star's LDE over 4 shards, (log R, B): the
+# forward transform's 2^22 points split 2^11 x 2^11, each shard 2^9
+# columns of width 2, the inverse's 2^20 split 2^10 x 2^10
+MESH_SHARDS = 4
+MESH_LDE = (20, 2, 2)
+MESH_STEP_LOG_N = 20
+MESH_COLS = [(11, 1024), (10, 512)]
+# the paths whose launches the JSON line's `dit_cols` and `quotient_program`
+# rows also report (`mesh`)
+MESH_PATHS = ("mesh step", "mesh prove 2^20")
 
 # Bounds. The card's peaks (NVIDIA H100 SXM, 700 W): 3.35 TB/s of device
 # memory and, for the 32-bit integer instructions the kernels run, one
@@ -491,11 +513,13 @@ def make_config(num_queries: int, log_blowup: int, pow_bits: int, device):
     return TwoAdicFriPcs(TapTreeMmcs(BcManager(), num_queries, ext=False), fri, device)
 
 
-def prove_fibonacci(log_n: int, log_blowup: int, num_queries: int, pow_bits: int, device, emit: bool = False):
+def prove_fibonacci(log_n: int, log_blowup: int, num_queries: int, pow_bits: int, device, emit: bool = False,
+                    pcs=None):
     """Prove and verify Fibonacci through the port (trace generation is not
     timed), and with `emit` emit and execute its script verifier; returns
     {"data": proof bytes, "witness", "prove_s", "verify_s", "report"
-    (None without `emit`), "emit_s"}."""
+    (None without `emit`), "emit_s"}. The PCS is `make_config`'s on
+    `device`, or `pcs` where given."""
     from tapstark_torch.airs import FibonacciAir, generate_fibonacci_trace
     from tapstark_torch.challenger import BfChallenger
     from tapstark_torch.field import F
@@ -503,7 +527,8 @@ def prove_fibonacci(log_n: int, log_blowup: int, num_queries: int, pow_bits: int
     from tapstark_torch.stark.script_verifier import generate_script_verifier
     from tapstark_torch.stark.serde import proof_from_bytes, proof_to_bytes
 
-    pcs = make_config(num_queries, log_blowup, pow_bits, device)
+    if pcs is None:
+        pcs = make_config(num_queries, log_blowup, pow_bits, device)
     trace = generate_fibonacci_trace(0, 1, 1 << log_n)
     pis = [F(0), F(1), F(int(trace[-1, 1]))]
     t0 = time.perf_counter()
@@ -904,10 +929,16 @@ def run_counted(dev, fn):
     return result, launches
 
 
-def run_prove(name: str, dev, cfg: dict, frozen) -> dict:
-    """One prove and verify through `run_counted`; prints the run, holds
-    the proof to `frozen` (sha256, bytes, witness) and returns the counts."""
-    run, launches = run_counted(dev, lambda: prove_fibonacci(device=dev, **cfg))
+# each `run_prove`'s prove seconds, by name
+PROVE_S: dict = {}
+
+
+def run_prove(name: str, dev, cfg: dict, frozen, pcs=None) -> dict:
+    """One prove and verify through `run_counted` (on `pcs` where given);
+    prints the run, holds the proof to `frozen` (sha256, bytes, witness)
+    and returns the counts."""
+    run, launches = run_counted(dev, lambda: prove_fibonacci(device=dev, pcs=pcs, **cfg))
+    PROVE_S[name] = run["prove_s"]
     data, witness = run["data"], run["witness"]
     print(
         f"{name}: fibonacci 2^{cfg['log_n']} rows: prove {run['prove_s']:.3f} s, verify {run['verify_s']:.3f} s "
@@ -1189,6 +1220,174 @@ def check_quotient_kernel(dev, stats: dict) -> None:
         del tq, want
 
 
+def wall_ms(fn, reps: int, devices) -> float:
+    """fn's host-clock time with every device of `devices` synchronized
+    before and after it (a mesh's work spans its cards: one card's CUDA
+    events would miss the others'), median of `reps` after one warm-up."""
+    def sync():
+        for d in set(devices):
+            torch.cuda.synchronize(d)
+
+    fn()
+    times = []
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def make_mesh(dev, mesh=None):
+    """`mesh`, or MESH_SHARDS shards on the card `dev`."""
+    from tapstark_torch.mesh import Mesh
+
+    return mesh if mesh is not None else Mesh([dev] * MESH_SHARDS)
+
+
+def check_mesh_lde(dev, stats: dict, mesh=None) -> None:
+    """The distributed NTT, its inverse and the distributed coset LDE at
+    MESH_LDE over the mesh (MESH_SHARDS shards of the card by default),
+    word for word against the plain NTT, the input and
+    `coset_lde_batch_auto` on the card; every shard's `dit_cols` launches
+    (two a transform) counted; the exchanges' bytes; the distributed LDE's
+    time against the one-device LDE's; `dit_cols` at its per-shard shapes
+    against its plain version and bound (the JSON row's `shapes`)."""
+    from tapstark_torch.field.constants import MULT_GENERATOR as shift
+    from tapstark_torch.mesh import collectives, distributed_coset_lde, distributed_ntt
+    from tapstark_torch.poly import cols_ntt, cuda_ntt, ntt
+
+    mesh = make_mesh(dev, mesh)
+    log_n, w, log_blowup = MESH_LDE
+    where = f"{mesh.size} shards on {sorted({str(d) for d in mesh.devices})}, 2^{log_n} x {w}"
+    x = _mont_on(mesh.primary, np.random.default_rng(41), 1 << log_n, w)
+    for module in (cols_ntt, cuda_ntt):
+        module.reset_launch_counts()
+    collectives.reset_counts()
+    y = distributed_ntt(mesh, x)
+    back = distributed_ntt(mesh, y, inverse=True)
+    lde = distributed_coset_lde(mesh, x, log_blowup, shift)
+    launches, moved = {**cols_ntt.launches, **cuda_ntt.launches}, dict(collectives.counts)
+    compare("distributed_ntt", y, ntt.ntt(x), where)
+    compare("distributed_ntt inverse", back, x, where)
+    compare("distributed_coset_lde", lde, ntt.coset_lde_batch_auto(x, log_blowup, shift), f"{where}, blowup "
+            f"{1 << log_blowup}")
+    want = 2 * 4 * mesh.size  # four transforms (the NTT, its inverse, the LDE's two), two launches each a shard
+    expect_launches("mesh lde", launches, {"dit_cols": want, "dit_cols.cols": want, "dit_cols.first": 0,
+                                           "dif_cols": 0, "lde_inverse": 0, "lde_forward": 0})
+    print(f"mesh lde {where}: distributed NTT, inverse and coset LDE (blowup {1 << log_blowup}) equal to one "
+          f"device's; dit_cols launches {want} ({want // mesh.size} a shard); exchanges {moved}", flush=True)
+    collectives.reset_counts()
+    distributed_coset_lde(mesh, x, log_blowup, shift)
+    print(f"mesh lde exchanges of one coset LDE: {collectives.counts}", flush=True)
+    mesh_ms = wall_ms(lambda: distributed_coset_lde(mesh, x, log_blowup, shift), 10, mesh.devices)
+    one_ms = wall_ms(lambda: ntt.coset_lde_batch_auto(x, log_blowup, shift), 10, mesh.devices)
+    print(f"mesh lde time (host clock, every card synchronized, median of 10): distributed {mesh_ms:.4f} ms, "
+          f"one device (coset_lde_batch_auto) {one_ms:.4f} ms", flush=True)
+    rng = np.random.default_rng(43)
+    for log_r, b in MESH_COLS:
+        m = _mont_on(mesh.primary, rng, 1 << log_r, b)
+        where = f"mesh shard R=2^{log_r} B={b} inverse=False"
+        run = lambda: cols_ntt.dit_cols(m, log_r, False)  # noqa: E731
+        plain = lambda: cols_ntt.dit_cols_plain(m, log_r, False)  # noqa: E731
+        record(stats, "dit_cols", compare("dit_cols", run(), plain(), where), run, plain, where,
+               cols_bound(log_r, b), "cols")
+    del x, y, back, lde
+
+
+def check_mesh_step(dev, stats: dict, segments: int, mesh=None) -> dict:
+    """`make_sharded_prover_step` at MESH_STEP_LOG_N (Fibonacci, blowup 2)
+    over the mesh, its four outputs word for word against the one-shard
+    composition on the card (`coset_lde_batch_auto`, `quotient_program`
+    over the whole coset, `fold_matrix`, the plain grind), each shard's
+    `dit_cols` and quotient-segment launches counted; then the windowed
+    segments against their plain version (the eager folder over the
+    window) at shard 1's window, timed against the bound (the JSON row's
+    `shapes`). Returns the step's counts."""
+    from tapstark_torch.air import program
+    from tapstark_torch.airs import FibonacciAir
+    from tapstark_torch.field.device import fetch_canonical
+    from tapstark_torch.field.scalar import EF4, F
+    from tapstark_torch.hashes.blake3 import compress_batch
+    from tapstark_torch.mesh import collectives, make_sharded_prover_step
+    from tapstark_torch.poly import cols_ntt, cuda_ntt, ntt
+    from tapstark_torch.poly.domain import TwoAdicMultiplicativeCoset
+    from tapstark_torch.poly.fold import fold_matrix
+
+    mesh = make_mesh(dev, mesh)
+    air, log_n = FibonacciAir(), MESH_STEP_LOG_N
+    step, args = make_sharded_prover_step(mesh, air, log_n=log_n, log_blowup=1)
+    for module in (cols_ntt, cuda_ntt, program):
+        module.reset_launch_counts()
+    collectives.reset_counts()
+    t0 = time.perf_counter()
+    lde, quotient, folded, winner = step(*args)
+    for d in set(mesh.devices):
+        torch.cuda.synchronize(d)
+    seconds = time.perf_counter() - t0
+    launches = {**cols_ntt.launches, **cuda_ntt.launches, **program.launches, **collectives.counts}
+    expect_launches("mesh step", launches, {"dit_cols.cols": 2 * 2 * mesh.size, "dit_cols.first": 0,
+                                            "lde_inverse": 0, "lde_forward": 0,
+                                            "quotient_program": segments * mesh.size})
+
+    trace, alpha4, beta4, grind_ws, capacity = args
+    shift = F.generator().v
+    td, coset = TwoAdicMultiplicativeCoset(log_n, 1), TwoAdicMultiplicativeCoset(log_n + 1, shift)
+    alpha, pis = EF4(tuple(int(v) for v in fetch_canonical(alpha4))), [F(0), F(1), F(0)]
+    lde1 = ntt.coset_lde_batch_auto(trace, 1, shift)
+    quotient1 = program.quotient_program(air, pis, td, coset, lde1.t().contiguous().t(), alpha)
+    ws = grind_ws.to(torch.int64)
+    out = compress_batch([ws] + [ws * 0] * 15, block_len=4, cv=[int(v) for v in capacity.tolist()])
+    hits = torch.nonzero((out[7] >> (32 - 8)) == 0)
+    where = f"{mesh.size} shards, 2^{log_n} x {air.width()}, blowup 2"
+    compare("mesh step lde", lde, lde1, where)
+    compare("mesh step quotient", quotient, quotient1, where)
+    compare("mesh step fold", folded, fold_matrix(beta4, quotient1.reshape(-1, 2, 4)), where)
+    if int(winner) != (int(hits[0, 0]) if hits.numel() else 0):
+        raise AssertionError(f"mesh step: grind winner {int(winner)}, one device's {hits[:1].tolist()}")
+    print(f"mesh step {where}: lde, quotient, fold and grind winner ({int(winner)}) equal to the one-shard "
+          f"composition; {seconds:.3f} s (first call); launches {launches}", flush=True)
+
+    big = 2 << log_n
+    rows = big // mesh.size
+    at = torch.arange(rows, rows + rows + 2, device=lde1.device) % big  # shard 1's rows, then its halo
+    tq = lde1.index_select(0, at).t().contiguous().t()
+    where = f"window of shard 1: rows {rows} .. {2 * rows - 1} of the coset {big} x {air.width()}"
+    run = lambda: program.quotient_window(air, pis, td, coset, tq, alpha, rows, rows)  # noqa: E731
+    plain = lambda: program.quotient_window_plain(air, pis, td, coset, tq, alpha, rows, rows)  # noqa: E731
+    prog, kernels = program.program_for(air, len(pis)), program.build(air, len(pis))
+    record(stats, "quotient_program", compare("quotient_program", run(), plain(), where), run, plain, where,
+           quotient_bound(prog.counts, set(kernels.plan.selectors), rows, air.width()))
+    return launches
+
+
+def run_mesh_prove(dev, name: str, cfg: dict, frozen, mesh=None) -> dict:
+    """A Fibonacci prove through `standard_config(mesh=...)` (the LDEs over
+    the mesh, MESH_SHARDS shards of the card by default) by `run_prove`:
+    its proof held to `frozen`; every LDE's `dit_cols` launches on every
+    shard and none of the one-device LDE kernels; its prove time beside
+    the one-device prove's of the same name, where this run had one."""
+    from tapstark_torch.mesh import collectives
+    from tapstark_torch.stark.config import standard_config
+
+    mesh = make_mesh(dev, mesh)
+    config = standard_config(cfg["log_blowup"], cfg["num_queries"], cfg["pow_bits"], mesh=mesh)
+    collectives.reset_counts()
+    launches = run_prove(f"mesh {name}", dev, cfg, frozen, config.pcs)
+    launches.update(collectives.counts)
+    # the trace's and the quotient's LDE: two transforms each, two launches a transform on every shard
+    expect_launches(f"mesh {name}", launches, {"dit_cols.cols": 2 * 2 * 2 * mesh.size, "dit_cols.first": 0,
+                                               "dif_cols.cols": 0, "dif_cols.last": 0, "lde_inverse": 0,
+                                               "lde_forward": 0, "bit_reverse_cols": 1})
+    expect_chain(name, launches)
+    one = PROVE_S.get(name)
+    print(f"mesh {name}: {mesh.size} shards on {sorted({str(d) for d in mesh.devices})}: prove "
+          f"{PROVE_S[f'mesh {name}']:.3f} s" + (f" against one device's {one:.3f} s" if one is not None else "")
+          + f"; exchanges {collectives.counts}", flush=True)
+    return launches
+
+
 def expect_launches(name: str, launches: dict, want: dict) -> None:
     got = {k: launches[k] for k in want}
     if got != want:
@@ -1244,6 +1443,8 @@ def kernel_rows(stats: dict, path_launches: dict) -> list:
             row["generator"] = "tapstark_torch/air/codegen.py"
         if name == "lde_inverse":  # K1 runs on K4's two DIF kernels: their launches on its path
             row["kernels"] = {k: counts[k] for k in ("dif_cols.cols", "dif_cols.last")}
+        if name in ("dit_cols", "quotient_program"):  # their launches on the mesh phase's paths too
+            row["mesh"] = {p: path_launches[p][name] for p in MESH_PATHS}
         rows.append(row)
     return rows
 
@@ -1368,6 +1569,13 @@ def main() -> int:
     launches = run_blake3(dev, BLAKE3_64, BLAKE3_64_PROOF, "blake3 sponge 64", check=False)  # the JAX package's bytes
     expect_chain("blake3 sponge 64", launches)
     check_quotient_kernel(dev, stats)
+
+    phase(f"mesh: the distributed LDE, the sharded prover step and the north-star prove over {MESH_SHARDS} "
+          "shards of the card")
+    check_mesh_lde(dev, stats)
+    path_launches["mesh step"] = check_mesh_step(dev, stats, segments["fibonacci"])
+    launches = path_launches["mesh prove 2^20"] = run_mesh_prove(dev, "north star", NORTH_STAR, PROOF_2_20)
+    expect_launches("mesh north star", launches, {"quotient_program": segments["fibonacci"]})
 
     loaded = [
         m for m in sys.modules

@@ -1,7 +1,7 @@
 """Longer measurements of the PyTorch/CUDA port on one GPU.
 
     python3 chip_study.py [kernels | sass | routes | device | suffix | busy | peak | wide | fri_tail | quotient
-                           | segments | spans | transcript | gather | blake3 ...]
+                           | segments | spans | transcript | gather | blake3 | mesh ...]
 
 `chip_smoke.py` checks the port; this script measures what it leaves
 out, for PERF.md (every phase, or the phases named):
@@ -42,7 +42,16 @@ out, for PERF.md (every phase, or the phases named):
 - the flagship (chip_smoke.py BLAKE3): busy share, largest items and the
   span that sets its peak; its proof's bytes go to
   `chiprun_out/blake3_proof.bin`, for `tools/freeze_port_references.py
-  blake3_port`.
+  blake3_port`;
+- the mesh across cards (`mesh`, on a host of 2 or more cards, four
+  where there are four): the cards' peer-access
+  matrix, chip_smoke.py's mesh checks (the distributed LDE, the sharded
+  prover step, the north-star prove) with the mesh's shards on the cards,
+  the 2^22-row prove over the mesh held to its frozen bytes, the
+  proves' times against one card's in turns, `dryrun_multichip`, the
+  distributed LDE's time against one card's at 2^20 and 2^22 rows, and
+  each all_to_all of those LDEs against its bound (the bytes a card sends
+  over NVLink's 450 GB/s each way).
 
 It builds the kernels from the checkout as `chip_smoke.py` does, and
 like it loads neither JAX nor the JAX package. Without a CUDA device it
@@ -606,6 +615,128 @@ def prove_blake3(dev) -> float:
     return t_prove
 
 
+NVLINK_BYTES_PER_S = 450e9  # one way, card to card (NVIDIA's H100 SXM data sheet: 900 GB/s both ways)
+MESH_LDE_LOG_NS = [20, 22]  # width 2, blowup 4
+
+
+def _prove_once(cfg: dict, make_pcs) -> tuple:
+    """A Fibonacci prove without its verify on a new PCS from `make_pcs()`
+    (a PCS's bit-commitment secrets advance with every prove):
+    (seconds, (sha256, bytes, PoW witness))."""
+    import hashlib
+
+    from tapstark_torch.airs import FibonacciAir, generate_fibonacci_trace
+    from tapstark_torch.challenger import BfChallenger
+    from tapstark_torch.field import F
+    from tapstark_torch.stark import prove
+    from tapstark_torch.stark.serde import proof_to_bytes
+
+    pcs = make_pcs()
+    trace = generate_fibonacci_trace(0, 1, 1 << cfg["log_n"])
+    t0 = time.perf_counter()
+    proof = prove(pcs, FibonacciAir(), BfChallenger(), trace, [F(0), F(1), F(int(trace[-1, 1]))])
+    seconds = time.perf_counter() - t0
+    data = proof_to_bytes(proof)
+    return seconds, (hashlib.sha256(data).hexdigest(), len(data), proof.opening_proof.pow_witness)
+
+
+def mesh(dev) -> None:
+    """The mesh across the host's cards (four where there are four, else
+    two; fewer than two raise): the peer-access matrix; chip_smoke.py's
+    mesh checks with the shards on the cards; the north-star and 2^22
+    proves over the mesh, verified and held to their frozen bytes under
+    chip_smoke.py's counters, then timed without their verify against one
+    card's in turns (one card, mesh, mesh, one card); `dryrun_multichip`;
+    the distributed coset LDE (width 2, blowup 4) at MESH_LDE_LOG_NS rows
+    against `coset_lde_batch_auto` on card 0, wall time in turns and the
+    device time of all cards summed (torch.profiler); and each all_to_all
+    of those LDEs alone against its bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tapstark_torch.airs import FibonacciAir
+    from tapstark_torch.field.constants import MULT_GENERATOR as shift
+    from tapstark_torch.mesh import Mesh, collectives, distributed_coset_lde, dryrun_multichip
+    from tapstark_torch.mesh.ntt import split
+    from tapstark_torch.poly import ntt
+    from tapstark_torch.stark.config import standard_config
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        raise RuntimeError(f"chip_study mesh: needs 2 or more cards, found {cards}")
+    mesh_ = Mesh.cards(4 if cards >= 4 else 2)
+    num = mesh_.size
+    print(subprocess.run(["nvidia-smi", "--query-gpu=index,name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    for i in range(cards):
+        print(f"peer access from card {i}: " + " ".join(
+            "-" if i == j else ("yes" if torch.cuda.can_device_access_peer(i, j) else "no") for j in range(cards)))
+    stats: dict = {}
+    segments = len(smoke.build_quotient(FibonacciAir(), 3).plan.segments)
+    smoke.check_mesh_lde(dev, stats, mesh_)
+    smoke.check_mesh_step(dev, stats, segments, mesh_)
+    for name, cfg, frozen in (("north star", smoke.NORTH_STAR, smoke.PROOF_2_20),
+                              ("blocks route", smoke.BLOCKS_PROVE, smoke.PROOF_2_22)):
+        smoke.run_mesh_prove(dev, name, cfg, frozen, mesh_)
+        def one(cfg=cfg):
+            return smoke.make_config(cfg["num_queries"], cfg["log_blowup"], cfg["pow_bits"], dev)
+
+        def over(cfg=cfg):
+            return standard_config(cfg["log_blowup"], cfg["num_queries"], cfg["pow_bits"], mesh=mesh_).pcs
+
+        times: dict = {"one card": [], "mesh": []}
+        _prove_once(cfg, one)
+        for which, pcs in (("one card", one), ("mesh", over), ("mesh", over), ("one card", one)):
+            seconds, got = _prove_once(cfg, pcs)
+            if got != frozen:
+                raise AssertionError(f"mesh study {name} ({which}): proof {got} differs from the frozen {frozen}")
+            times[which].append(seconds)
+        print(f"mesh study {name}: prove without verify, s, in turns: one card {times['one card']}, "
+              f"{num} cards {times['mesh']}; proofs equal to the frozen", flush=True)
+    t0 = time.perf_counter()
+    out = dryrun_multichip(num)
+    for d in mesh_.devices:
+        torch.cuda.synchronize(d)
+    print(f"dryrun_multichip({num}): lde {tuple(out[0].shape)}, quotient {tuple(out[1].shape)}, folded "
+          f"{tuple(out[2].shape)}, winner {int(out[3])}; {time.perf_counter() - t0:.3f} s (first call)", flush=True)
+
+    rng = np.random.default_rng(47)
+    for log_n in MESH_LDE_LOG_NS:
+        x = smoke._mont_on(dev, rng, 1 << log_n, 2)
+        run_mesh = lambda: distributed_coset_lde(mesh_, x, 2, shift)  # noqa: E731
+        run_one = lambda: ntt.coset_lde_batch_auto(x, 2, shift)  # noqa: E731
+        smoke.compare("mesh study lde", run_mesh(), run_one(), f"2^{log_n}")
+        ms = {"one card": [], "mesh": []}
+        for which, fn in (("one card", run_one), ("mesh", run_mesh), ("mesh", run_mesh), ("one card", run_one)):
+            ms[which].append(smoke.wall_ms(fn, 10, mesh_.devices))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                run_mesh()
+            for d in mesh_.devices:
+                torch.cuda.synchronize(d)
+        items = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                       key=lambda e: -e.self_device_time_total)
+        busy = sum(e.self_device_time_total for e in items)
+        collectives.reset_counts()
+        run_mesh()
+        print(f"mesh study lde 2^{log_n} x 2, blowup 4: wall ms (medians of 10, every card synchronized, in turns): "
+              f"one card {ms['one card']}, {num} cards {ms['mesh']}; device time (kernels and copies) of all cards "
+              f"summed {busy / 10 / 1e3:.4f} ms a call, largest: " + ", ".join(
+                  f"{_kernel_name(e.key)[:60]} {e.self_device_time_total / 10 / 1e3:.4f} ms x{e.count / 10:g}"
+                  for e in items[:6]) + f"; exchanges {collectives.counts}", flush=True)
+        # each all_to_all of the LDE alone: the inverse's (n points) and the forward's (4n)
+        for what, log_size in (("inverse", log_n), ("forward", log_n + 2)):
+            log_r, log_c = split(log_size, num)
+            blocks = [smoke._mont_on(d, rng, 1 << log_r, (1 << log_c) // num, 2) for d in mesh_.devices]
+            sent = blocks[0].numel() * 4 * (num - 1) // num  # bytes a card sends
+            a2a = smoke.wall_ms(lambda: collectives.all_to_all(mesh_, blocks, 0), 10, mesh_.devices)
+            print(f"mesh study all_to_all ({what} transform of the 2^{log_n} LDE, blocks {tuple(blocks[0].shape)}): "
+                  f"{a2a:.4f} ms, a card sends {sent / 2**20:.2f} MiB, bound {1e3 * sent / NVLINK_BYTES_PER_S:.4f} ms "
+                  f"(bytes over {NVLINK_BYTES_PER_S / 1e9:g} GB/s)", flush=True)
+            del blocks
+        del x
+
+
 PHASES = {  # name: (title, what runs); `python3 chip_study.py [name ...]` runs those
     "kernels": ("kernels at the north star's largest shapes", kernels_full_size),
     "sass": ("SHA-256 kernels' SASS instruction classes", sha_sass),
@@ -629,6 +760,7 @@ PHASES = {  # name: (title, what runs); `python3 chip_study.py [name ...]` runs 
     "blake3": ("the flagship's prove: busy share and peak device memory, by span; its proof's bytes",
                lambda dev: [busy_share(dev, "blake3 sponge", prove_blake3),
                             peak_memory(dev, "blake3 sponge", prove_blake3)]),
+    "mesh": ("the mesh across cards: peer access, the distributed LDE, the sharded step, the proves", mesh),
 }
 
 
@@ -644,7 +776,7 @@ def main() -> int:
     from tapstark_torch import _build
 
     _build.load_library()
-    for name in sys.argv[1:] or PHASES:
+    for name in sys.argv[1:] or [p for p in PHASES if p != "mesh"]:  # mesh needs two cards or more
         title, run = PHASES[name]
         smoke.phase(title)
         run(dev)

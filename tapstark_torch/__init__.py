@@ -30,6 +30,8 @@ Carried here as twins of modules whose reference imports jax:
   air/folders.py             prover (tensor) and verifier (host) constraint folders
   fri/                       config, proof, PCS, FRI prover and verifier
   stark/                     prove, verify, proof containers, serde
+  mesh/                      the device mesh: distributed four-step LDE,
+                             block exchanges, the sharded prover step
   interop.py                 carry-across to and from the JAX package (tests)
 
 Kernel sources are in csrc/, built by nvcc at first use (_build.py).

@@ -58,7 +58,9 @@ class QuotientArgs(ctypes.Structure):
         ("out", ctypes.c_void_p),
         ("coset", ctypes.c_void_p),
         ("alpha_pows", ctypes.c_void_p),
-        ("m", ctypes.c_longlong),
+        ("row0", ctypes.c_longlong),
+        ("rows", ctypes.c_longlong),
+        ("ld", ctypes.c_longlong),
         ("next_step", ctypes.c_longlong),
         ("log_lo", ctypes.c_int),
         ("log_hi", ctypes.c_int),
@@ -191,12 +193,12 @@ def sources(prog: Program, pl: Plan, tag: str) -> list[str]:
             name = {K_VAL: "v", K_LOCAL: "l", K_NEXT: "n", K_SEL: "s"}[kind] + str(i)
             if name not in have:
                 if kind == K_LOCAL or kind == K_NEXT:
-                    load = f"{'tl' if kind == K_LOCAL else 'tn'}[{i} * m]"
+                    load = f"{'tl' if kind == K_LOCAL else 'tn'}[{i} * ld]"
                 else:  # defined in an earlier segment: its row of the live buffer
                     value = i if kind == K_VAL else n + i
                     if value not in sg.loads:
                         raise AssertionError(f"{prog.name}: segment {k} reads {name}, which no earlier one stores")
-                    load = f"lv[{sg.loads[value]} * m]"
+                    load = f"lv[{sg.loads[value]} * ld]"
                 body.append(f"    const uint32_t {name} = {load};")
                 have.add(name)
             return name
@@ -218,7 +220,7 @@ def sources(prog: Program, pl: Plan, tag: str) -> list[str]:
         for s in here:
             have.add(f"s{s}")
             if n + s in sg.stores:
-                body.append(f"    lv[{sg.stores[n + s]} * m] = s{s};  // {_SEL_NAMES[s]}")
+                body.append(f"    lv[{sg.stores[n + s]} * ld] = s{s};  // {_SEL_NAMES[s]}")
         if sg.folds:
             body.append("    uint32_t sum[4] = {0u, 0u, 0u, 0u};")
         pending, e = None, sg.folds  # a fold waiting for its pair; the next fold's power is alpha^(e - 1)
@@ -236,11 +238,11 @@ def sources(prog: Program, pl: Plan, tag: str) -> list[str]:
             body.append(f"    const uint32_t v{p} = {_STATEMENT[op].format(*args)};")
             have.add(f"v{p}")
             if p in sg.stores:
-                body.append(f"    lv[{sg.stores[p]} * m] = v{p};")
+                body.append(f"    lv[{sg.stores[p]} * ld] = v{p};")
         if pending is not None:
             body.append(f"    fold_one(sum, a, 0, {pending});")
         if sg.acc_in:
-            body.append("    uint32_t acc[4] = {" + ", ".join(f"lv[{j} * m]" for j in range(4)) + "};")
+            body.append("    uint32_t acc[4] = {" + ", ".join(f"lv[{j} * ld]" for j in range(4)) + "};")
             if sg.folds:
                 body.append(f"    fold_segment(acc, a, {sg.folds}, sum);")
         elif sg.folds:
@@ -248,9 +250,9 @@ def sources(prog: Program, pl: Plan, tag: str) -> list[str]:
         elif k + 1 == nseg:
             body.append("    const uint32_t acc[4] = {0u, 0u, 0u, 0u};")
         if k + 1 == nseg:
-            body.append("    store_quotient(a, row, acc);")
+            body.append("    store_quotient(a, r, row, acc);")
         elif sg.acc_out:
-            body += [f"    lv[{j} * m] = acc[{j}];" for j in range(4)]
+            body += [f"    lv[{j} * ld] = acc[{j}];" for j in range(4)]
         out.append(
             f"// Segment {k} of {nseg} of the constraint program of {prog.name}: instructions\n"
             f"// [{sg.start}, {sg.stop}) of {n}, {len(sg.loads)} values loaded from the live buffer, "
@@ -259,13 +261,15 @@ def sources(prog: Program, pl: Plan, tag: str) -> list[str]:
             '#include "quotient.cuh"\n\nnamespace {\n\n'
             f"__global__ void __launch_bounds__(kQuotientBlock) quotient_segment_{k}(const __grid_constant__ "
             "QuotientArgs a) {\n"
-            "  const long long m = a.m;\n"
+            "  const long long ld = a.ld;\n"
             "  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;\n"
-            "  for (long long row = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; row < m; "
-            "row += stride) {\n"
-            "    const uint32_t* __restrict__ tl = a.tq + row;\n"
-            "    const uint32_t* __restrict__ tn = a.tq + ((row + a.next_step) & (m - 1));\n"
-            "    uint32_t* __restrict__ lv = a.live + row;\n"
+            "  for (long long r = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; r < a.rows; "
+            "r += stride) {\n"
+            "    const long long row = a.row0 + r;  // the coset's row: the selectors and 1/zh\n"
+            "    const long long rn = r + a.next_step;  // the next row's, in the buffer\n"
+            "    const uint32_t* __restrict__ tl = a.tq + r;\n"
+            "    const uint32_t* __restrict__ tn = a.tq + (rn < ld ? rn : rn - ld);\n"
+            "    uint32_t* __restrict__ lv = a.live + r;\n"
             + "\n".join(body)
             + "\n  }\n}\n\n}  // namespace\n\n"
             f"QUOTIENT_SEGMENT_ENTRY({tag}_{k}, quotient_segment_{k})\n"

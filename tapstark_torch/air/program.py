@@ -358,9 +358,11 @@ def _g_inv(log_n: int) -> int:
 
 
 def quotient_args(trace_domain, quotient_domain, public_values, tq: int, live: int, out: int, coset: int,
-                  alpha_pows: int):
-    """The kernels' arguments (`codegen.QuotientArgs`) for a coset whose
-    buffers lie at the given addresses."""
+                  alpha_pows: int, row0: int = 0, rows: int | None = None, ld: int | None = None):
+    """The kernels' arguments (`codegen.QuotientArgs`) for the window of
+    `rows` coset rows from row `row0` (the whole coset by default) whose
+    buffers lie at the given addresses, their leading dimension `ld` (the
+    coset's size by default)."""
     from .codegen import QuotientArgs
 
     log_n, log_m = trace_domain.log_n, quotient_domain.log_n
@@ -368,8 +370,15 @@ def quotient_args(trace_domain, quotient_domain, public_values, tq: int, live: i
         raise ValueError("quotient_program expects the natural trace domain and a coset no smaller")
     if len(public_values) > MAX_PUBLIC:
         raise ValueError(f"quotient_program: {len(public_values)} public values, at most {MAX_PUBLIC}")
+    m, next_step = 1 << log_m, 1 << (log_m - log_n)
+    rows = m if rows is None else rows
+    ld = m if ld is None else ld
+    whole = row0 == 0 and rows == ld == m  # the next rows wrap around the coset
+    if not whole and not (0 <= row0 and rows >= 1 and row0 + rows <= m and rows + next_step <= ld):
+        raise ValueError(f"quotient_program: a window of {rows} rows from row {row0} of {m} needs its "
+                         f"{next_step} next rows in the buffer (leading dimension {ld})")
     return QuotientArgs(
-        tq, live, out, coset, alpha_pows, 1 << log_m, 1 << (log_m - log_n), log_m // 2, log_m - log_m // 2,
+        tq, live, out, coset, alpha_pows, row0, rows, ld, next_step, log_m // 2, log_m - log_m // 2,
         log_m - log_n, _g_inv(log_n),
         (ctypes.c_uint32 * MAX_PUBLIC)(*(_mont(v.v) for v in public_values)),
     )
@@ -384,32 +393,65 @@ def quotient_program(air, public_values, trace_domain, quotient_domain, tq: torc
     gives it) and the generated segments run one after another, computing
     the selectors themselves; on a CPU tensor, the plain version over
     `selectors_on_coset`."""
+    return quotient_window(air, public_values, trace_domain, quotient_domain, tq, alpha)
+
+
+def window_selectors(sels, row0: int, ld: int):
+    """The coset's selectors at rows row0 .. row0 + ld - 1, mod the coset's size."""
+    m = sels.is_first_row.shape[0]
+    idx = (torch.arange(ld, dtype=torch.int64, device=sels.is_first_row.device) + row0) % m
+    return type(sels)(*(s.index_select(0, idx) for s in (sels.is_first_row, sels.is_last_row, sels.is_transition,
+                                                          sels.inv_zeroifier)))
+
+
+def quotient_window_plain(air, public_values, trace_domain, quotient_domain, tq: torch.Tensor, alpha: EF4,
+                          row0: int = 0, rows: int | None = None) -> torch.Tensor:
+    """The windowed kernels' plain version: the eager folder over the
+    window's buffer (its next rows roll around the buffer, as the kernels'
+    do), with the selectors (`selectors_on_coset`) at the buffer's coset
+    rows; its first `rows` rows."""
+    ld = tq.shape[0]
+    rows = ld if rows is None else rows
     next_step = 1 << (quotient_domain.log_n - trace_domain.log_n)
+    sels = trace_domain.selectors_on_coset(quotient_domain, tq.device)
+    if row0 != 0 or ld != quotient_domain.size():
+        sels = window_selectors(sels, row0, ld)
+    return quotient_eager(air, public_values, sels, next_step, tq, alpha)[:rows]
+
+
+def quotient_window(air, public_values, trace_domain, quotient_domain, tq: torch.Tensor, alpha: EF4,
+                    row0: int = 0, rows: int | None = None) -> torch.Tensor:
+    """`quotient_program` over the coset's rows row0 .. row0 + rows - 1, as
+    a (rows, 4) tensor: `tq` (ld, width) holds them and, after them, at
+    least the next_step rows that follow them in the coset (ld >= rows +
+    next_step), or is the whole coset (row0 0, rows = ld = m). On the card
+    `tq` is laid out by columns (strides (1, ld)) and the segments run on
+    the window; on a CPU tensor, `quotient_window_plain`."""
     if tq.device.type == "cpu":
-        sels = trace_domain.selectors_on_coset(quotient_domain, tq.device)
-        return quotient_eager(air, public_values, sels, next_step, tq, alpha)
+        return quotient_window_plain(air, public_values, trace_domain, quotient_domain, tq, alpha, row0, rows)
     if tq.device.type != "cuda":
         raise ValueError(f"quotient_program: no path for device {tq.device}")
     return launch_segments(build(air, len(public_values)), air, public_values, trace_domain, quotient_domain, tq,
-                           alpha)
+                           alpha, row0, rows)
 
 
 def launch_segments(kernels, air, public_values, trace_domain, quotient_domain, tq: torch.Tensor,
-                    alpha: EF4) -> torch.Tensor:
-    """`quotient_program` on the card through the given built segments
+                    alpha: EF4, row0: int = 0, rows: int | None = None) -> torch.Tensor:
+    """`quotient_window` on the card through the given built segments
     (`codegen.Kernels` of the AIR's program, at any segment length): each
     launched in turn on the current stream; raises on a launch's error."""
-    m, width = tq.shape
-    if tq.dtype != torch.int32 or width != air.width() or m != quotient_domain.size() or tq.stride() != (1, m):
-        raise ValueError(f"quotient_program: expected an int32 ({quotient_domain.size()}, {air.width()}) tensor "
-                         "laid out by columns (strides (1, m))")
+    ld, width = tq.shape
+    rows = ld if rows is None else rows
+    if tq.dtype != torch.int32 or width != air.width() or tq.stride() != (1, ld):
+        raise ValueError(f"quotient_program: expected an int32 (rows, {air.width()}) tensor laid out by columns "
+                         "(strides (1, rows))")
     dev = tq.device
-    live = torch.empty((max(kernels.plan.live_rows, 1), m), dtype=torch.int32, device=dev)
-    out = torch.empty((m, 4), dtype=torch.int32, device=dev)
+    live = torch.empty((max(kernels.plan.live_rows, 1), ld), dtype=torch.int32, device=dev)
+    out = torch.empty((rows, 4), dtype=torch.int32, device=dev)
     coset = coset_tables(trace_domain.log_n, quotient_domain.log_n, quotient_domain.shift, dev)
     pows = torch.from_numpy(alpha_powers(alpha, kernels.plan.alpha_powers).view(np.int32)).to(dev)
     args = quotient_args(trace_domain, quotient_domain, public_values, tq.data_ptr(), live.data_ptr(),
-                         out.data_ptr(), coset.data_ptr(), pows.data_ptr())
+                         out.data_ptr(), coset.data_ptr(), pows.data_ptr(), row0, rows, ld)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         for k, entry in enumerate(kernels.entries):

@@ -5,8 +5,12 @@
 // each its own translation unit and its own __global__ kernel over the whole
 // coset (one thread a row, a grid-stride loop). The segments run one after
 // another; the last writes the row's folded constraints divided by the
-// zeroifier. Plain version: the eager ProverConstraintFolder (program.py
-// quotient_eager).
+// zeroifier. A launch covers a window of the coset: `rows` rows from the
+// coset's row `row0`, the trace's buffer holding them and the rows that
+// follow (a shard of the mesh's sharded prover step reads its own rows
+// and the halo after them); the whole coset is the window of m rows from
+// row 0, whose next rows wrap. Plain version: the eager
+// ProverConstraintFolder (program.py quotient_eager, over the window).
 //
 // Replaces no Pallas kernel. The JAX package evaluates the same folder
 // under one jit (tapstark/stark/prover.py quotient_values), which XLA fuses.
@@ -15,13 +19,16 @@
 // (BabyBear add, sub, mul, neg on Montgomery words, babybear.cuh), each
 // constant a literal Montgomery word, each public value a word of the
 // arguments. A trace column is loaded once a segment, at its first use,
-// from the coset laid out by columns (tq[j * m + row]: a warp's read of a
-// column is one 128-byte line; the next row is row + next_step mod m). The
-// values live across a cut, the 4-word accumulator among them, go through
-// `live`, laid out [value][row] (coalesced too): a segment stores each one
+// from the window laid out by columns (tq[j * ld + r] for the window's row
+// r: a warp's read of a column is one 128-byte line; the next row is r +
+// next_step, less ld where that reaches ld). The values live across a cut,
+// the 4-word accumulator among them, go through `live`, laid out
+// [value][r] with the same leading dimension (coalesced too): a segment
+// stores each one
 // it defines right after the statement, and loads each one it reads at its
-// first use. The selectors are computed from the coset's parameters, in the
-// segment that first reads them (codegen.py), and cross cuts as values. The
+// first use. The selectors are computed from the coset's parameters at the
+// coset's row row0 + r, in the segment that first reads them (codegen.py),
+// and cross cuts as values. The
 // folds of a segment are a sum of products by powers of alpha (fold_pair
 // below), so they form no chain.
 //
@@ -45,12 +52,14 @@ constexpr long long kQuotientMaxBlocks = 4096;
 
 // The arguments every segment takes (air/codegen.py QuotientArgs mirrors it).
 struct QuotientArgs {
-  const uint32_t* tq;     // (width, m) trace on the coset, by columns, Montgomery
-  uint32_t* live;         // (slots, m) values carried across cuts
-  uint32_t* out;          // (m, 4) quotient, Montgomery
+  const uint32_t* tq;     // (width, ld) the window's trace rows and those after them, by columns, Montgomery
+  uint32_t* live;         // (slots, ld) values carried across cuts
+  uint32_t* out;          // (rows, 4) the window's quotient, Montgomery
   const uint32_t* coset;  // x tables lo (2^log_lo) | hi (2^log_hi), then zh and 1/zh (2^log_q each)
   const uint4* alpha_pows;  // alpha^0, alpha^1, ... (as many as a segment folds, and one), Montgomery
-  long long m;            // a power of two
+  long long row0;         // the window's first row in the coset
+  long long rows;         // the window's rows
+  long long ld;           // the buffers' leading dimension: rows + next_step or more, or m for the whole coset
   long long next_step;
   int log_lo, log_hi, log_q;
   uint32_t g_inv;         // the trace domain's generator, inverted, Montgomery
@@ -161,18 +170,20 @@ __device__ __forceinline__ uint32_t last_row(uint32_t x, uint32_t zh, uint32_t g
   return mont_mul(zh, mont_inv(sub_mod(x, g_inv)));
 }
 
-// The last segment's store: the accumulator times 1/zh.
-__device__ __forceinline__ void store_quotient(const QuotientArgs& a, long long row, const uint32_t (&acc)[4]) {
+// The last segment's store: the accumulator times 1/zh at the coset's row
+// `row`, into the window's row r.
+__device__ __forceinline__ void store_quotient(const QuotientArgs& a, long long r, long long row,
+                                               const uint32_t (&acc)[4]) {
   const uint32_t z = coset_zh(a, row, 1);
-  uint32_t* o = a.out + 4 * row;
+  uint32_t* o = a.out + 4 * r;
   o[0] = mont_mul(acc[0], z);
   o[1] = mont_mul(acc[1], z);
   o[2] = mont_mul(acc[2], z);
   o[3] = mont_mul(acc[3], z);
 }
 
-__host__ __device__ inline unsigned quotient_grid(long long m) {
-  const long long blocks = (m + kQuotientBlock - 1) / kQuotientBlock;
+__host__ __device__ inline unsigned quotient_grid(long long rows) {
+  const long long blocks = (rows + kQuotientBlock - 1) / kQuotientBlock;
   return static_cast<unsigned>(blocks < kQuotientMaxBlocks ? blocks : kQuotientMaxBlocks);
 }
 
@@ -182,10 +193,10 @@ __host__ __device__ inline unsigned quotient_grid(long long m) {
 // (returns the launch's CUDA error); on the host (tests/cuda_host_shim),
 // the launch's threads one after another.
 #ifdef __CUDACC__
-#define QUOTIENT_SEGMENT_ENTRY(name, kernel)                                                   \
-  extern "C" int name(const QuotientArgs* a, void* stream) {                                   \
-    kernel<<<quotient_grid(a->m), kQuotientBlock, 0, static_cast<cudaStream_t>(stream)>>>(*a); \
-    return static_cast<int>(cudaGetLastError());                                               \
+#define QUOTIENT_SEGMENT_ENTRY(name, kernel)                                                      \
+  extern "C" int name(const QuotientArgs* a, void* stream) {                                      \
+    kernel<<<quotient_grid(a->rows), kQuotientBlock, 0, static_cast<cudaStream_t>(stream)>>>(*a); \
+    return static_cast<int>(cudaGetLastError());                                                  \
   }
 #else
 void host_launch_segment(void (*kernel)(QuotientArgs), const QuotientArgs& a);

@@ -13,6 +13,11 @@
   emitted while the openings are verified natively (host code).
 
 The LDEs and the reduction run on `device` (int32 Montgomery tensors).
+With a mesh (`tapstark_torch.mesh.Mesh`, whose primary device is
+`device`), each commit's LDE of at least 2^max(2·log num, 2) rows runs
+over the mesh (`distributed_coset_lde`) and lands on `device`, where the
+commit, the quotient, the open and FRI run as on one device: the proof's
+bytes are one device's.
 """
 
 from __future__ import annotations
@@ -42,6 +47,8 @@ from ..field.device import (
     np_to_mont,
 )
 from ..poly.domain import TwoAdicMultiplicativeCoset
+from ..mesh import normalize_device
+from ..mesh.ntt import distributed_coset_lde
 from ..poly.interpolate import _interp_weights
 from ..poly.ntt import bit_reverse_cols, bit_reverse_rows, coset_lde_batch_auto
 from ..poly.powers import bitrev_1d_dev, geom_powers_mont_dev
@@ -119,13 +126,23 @@ def _open_height(natural, mat, weights, zs, scales, xs, invd):
 
 
 class TwoAdicFriPcs:
-    def __init__(self, mmcs: TapTreeMmcs, fri: FriConfig, device, device_chain: bool = True):
+    def __init__(self, mmcs: TapTreeMmcs, fri: FriConfig, device, device_chain: bool = True, mesh=None):
         self.mmcs = mmcs  # base-field input mmcs
         self.fri = fri
         self.device = torch.device(device)
         # False: every FRI layer's beta is sampled on the host (the same
         # bytes; fri/prover.py, the device transcript chain)
         self.device_chain = device_chain
+        # the LDEs' mesh (tapstark/fri/pcs.py:138-157); its primary device is `device`
+        self.mesh = mesh
+        if mesh is not None and mesh.primary != normalize_device(device):
+            raise ValueError(f"TwoAdicFriPcs: the mesh's primary device {mesh.primary} is not the PCS's {device}")
+
+    def _lde(self, evals: torch.Tensor, shift: int) -> torch.Tensor:
+        mesh = self.mesh
+        if mesh is not None and evals.shape[0] >= 1 << max(2 * mesh.log_size, 2):
+            return distributed_coset_lde(mesh, evals, self.fri.log_blowup, shift)
+        return coset_lde_batch_auto(evals, self.fri.log_blowup, shift)
 
     def natural_domain_for_degree(self, degree: int) -> TwoAdicMultiplicativeCoset:
         return TwoAdicMultiplicativeCoset(log_n=log2_strict(degree), shift=1)
@@ -138,7 +155,7 @@ class TwoAdicFriPcs:
             if domain.size() != evals.shape[0]:
                 raise ValueError("domain size and evaluation height differ")
             shift = (F.generator() * F(domain.shift).inverse()).v
-            lde = coset_lde_batch_auto(evals.contiguous(), self.fri.log_blowup, shift)
+            lde = self._lde(evals.contiguous(), shift)
             lde = bit_reverse_rows(lde)
             domains.append(domain)
             ldes.append(lde)

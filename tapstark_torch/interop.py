@@ -17,6 +17,7 @@ import torch
 from .commit import BcManager, TapTreeMmcs
 from .fri.config import FriConfig
 from .fri.pcs import TwoAdicFriPcs
+from .mesh import Mesh
 from .stark.config import StarkConfig
 
 
@@ -39,9 +40,10 @@ def mmcs_from_reference(ref_mmcs) -> TapTreeMmcs:
     return TapTreeMmcs(manager, ref_mmcs.num_queries, ref_mmcs.ext)
 
 
-def pcs_from_reference(ref_pcs, device) -> TwoAdicFriPcs:
+def pcs_from_reference(ref_pcs, device, mesh=None) -> TwoAdicFriPcs:
     """The port's PCS for a JAX-package `TwoAdicFriPcs`, with the port's
-    own copies of its input mmcs and its FRI mmcs."""
+    own copies of its input mmcs and its FRI mmcs (and `mesh`, whose
+    primary device is `device`)."""
     f = ref_pcs.fri
     fri = FriConfig(
         log_blowup=f.log_blowup,
@@ -50,12 +52,21 @@ def pcs_from_reference(ref_pcs, device) -> TwoAdicFriPcs:
         mmcs=mmcs_from_reference(f.mmcs),
         log_final_poly_len=f.log_final_poly_len,
     )
-    return TwoAdicFriPcs(mmcs_from_reference(ref_pcs.mmcs), fri, device)
+    return TwoAdicFriPcs(mmcs_from_reference(ref_pcs.mmcs), fri, device, mesh=mesh)
 
 
-def config_from_reference(ref_config, device) -> StarkConfig:
+def config_from_reference(ref_config, device, devices=None) -> StarkConfig:
     """The port's StarkConfig for a JAX-package one, its PCS on `device`.
-    A reference PCS over a device mesh has no counterpart here."""
-    if getattr(ref_config.pcs, "mesh", None) is not None:
-        raise NotImplementedError("config_from_reference: a device mesh is not supported")
-    return StarkConfig(pcs=pcs_from_reference(ref_config.pcs, device))
+    A reference PCS over a mesh of k devices becomes one over a port mesh
+    of k shards: on `devices` where the caller names them (the first is
+    then the PCS's device), else k shards on `device`."""
+    ref_mesh = getattr(ref_config.pcs, "mesh", None)
+    if ref_mesh is None:
+        return StarkConfig(pcs=pcs_from_reference(ref_config.pcs, device))
+    k = int(np.size(ref_mesh.devices))
+    if devices is None:
+        devices = [device] * k
+    elif len(devices) != k:
+        raise ValueError(f"config_from_reference: the reference mesh has {k} devices, {len(devices)} named")
+    mesh = Mesh(devices)
+    return StarkConfig(pcs=pcs_from_reference(ref_config.pcs, mesh.primary, mesh))

@@ -26,10 +26,16 @@ def _g_inv_powers_bitrev(log_half: int, device) -> torch.Tensor:
     return bitrev_1d_dev(geom_powers_mont_dev(g_inv, log_half, 1, device), log_half)
 
 
-def fold_matrix(beta_mont: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
-    """Fold a (half, 2, 4) ext matrix with beta ((4,) Montgomery) → (half, 4)."""
+def fold_matrix(beta_mont: torch.Tensor, m: torch.Tensor, offset: int = 0, log_half: int | None = None) -> torch.Tensor:
+    """Fold a (half, 2, 4) ext matrix with beta ((4,) Montgomery) → (half, 4).
+    With `log_half`, m holds rows offset .. offset + half - 1 of a matrix of
+    2^log_half rows (a shard's rows: the g_inv powers are those rows')."""
     half = m.shape[0]
-    ginv = _g_inv_powers_bitrev(log2_strict(half), m.device)
+    if log_half is None:
+        log_half = log2_strict(half)
+    if offset < 0 or offset + half > 1 << log_half:
+        raise ValueError(f"fold_matrix: rows {offset} .. {offset + half - 1} of 2^{log_half}")
+    ginv = _g_inv_powers_bitrev(log_half, m.device)[offset : offset + half]
     half_beta = fp_mul(beta_mont, MONT_HALF)  # (4,)
     power = ef_mul_base(half_beta.expand(half, 4), ginv)  # (half, 4)
     half_vec = torch.zeros((half, 4), dtype=torch.int32, device=m.device)

@@ -36,9 +36,11 @@ def standard_config(
 ) -> StarkConfig:
     """The fib_air-shaped configuration (uni-stark/tests/fib_air.rs:117-131)
     on `device`, the card by default: without one it raises, it never
-    falls back to the CPU. Only `mesh=None` (one device) is supported."""
-    if mesh is not None:
-        raise NotImplementedError("standard_config: a device mesh is not supported (one device only)")
+    falls back to the CPU. With a mesh (`tapstark_torch.mesh.Mesh`) the
+    PCS's LDEs run over it and the PCS lives on its primary device (a
+    `device` named beside it must be that one)."""
+    if mesh is not None and device is None:
+        device = mesh.primary
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError("standard_config: no CUDA device; pass device='cpu' to prove on the CPU")
@@ -51,5 +53,5 @@ def standard_config(
         log_final_poly_len=log_final_poly_len,
     )
     return StarkConfig(
-        pcs=TwoAdicFriPcs(TapTreeMmcs(BcManager(), num_queries, ext=False), fri, device)
+        pcs=TwoAdicFriPcs(TapTreeMmcs(BcManager(), num_queries, ext=False), fri, device, mesh=mesh)
     )

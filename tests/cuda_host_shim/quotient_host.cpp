@@ -3,7 +3,8 @@
 // entry point runs its launch's threads one after another (the kernels have
 // no barrier and no shared memory), and host_run_segments runs the segments
 // one after another, as the card's stream does, copying the live buffer
-// after each.
+// after each. A launch covers the arguments' window of the coset (all of
+// it, or a shard's rows with the halo after them in its buffers).
 #include <cstring>
 
 #include "cuda_runtime.h"
@@ -27,12 +28,12 @@ void host_launch_segment(void (*kernel)(QuotientArgs), const QuotientArgs& a) {
 extern "C" {
 
 // Runs segments[0 .. n) over a launch of `grid` blocks of `block` threads
-// (grid 0: the card's shape, quotient_grid and kQuotientBlock) and copies
+// (grid 0: the card's shape for the window, quotient_grid and kQuotientBlock) and copies
 // the live buffer's `live_words` words after segment k to snapshots + k *
 // live_words.
 void host_run_segments(void (*const* segments)(const QuotientArgs*), int n, const QuotientArgs* a, unsigned grid,
                        unsigned block, uint32_t* snapshots, long long live_words) {
-  gridDim = dim3(grid ? grid : quotient_grid(a->m));
+  gridDim = dim3(grid ? grid : quotient_grid(a->rows));
   blockDim = dim3(grid ? block : kQuotientBlock);
   for (int k = 0; k < n; ++k) {
     segments[k](a);

@@ -58,6 +58,7 @@ from tapstark_torch.air.program import (
     program_for,
     quotient_args,
     quotient_eager,
+    quotient_window_plain,
 )
 from tapstark_torch.air.symbolic import get_log_quotient_degree
 from tapstark_torch.airs import (
@@ -205,6 +206,9 @@ def test_sponge_quotient_rows_match_jax_folder():
 HOST_CASES = [(FibonacciAir(), 3, 3, None, None), (MulAir(), 3, 4, (2, 4), None), (WideAir(8), 8, 3, None, 16),
               (RecursionAir(), 12, 3, (3, 4), 300), (Blake3GAir(), 8, 4, None, None),
               (Blake3CompressionAir(), 48, 3, None, None), (Blake3SpongeChainAir(), 16, 3, (2, 4), None)]
+# the cases also run as two windows of the coset, each with its halo (a
+# mesh shard's launch): Fibonacci, and RecursionAir cut by a short S
+WINDOWED_CASES = (0, 3)
 
 
 @pytest.fixture(scope="module")
@@ -295,7 +299,11 @@ def test_program_on_host_shim_matches_eager(host_program):
     before it (liveness recomputed here), each is stored and loaded at one
     row of the live buffer that nothing overwrites in between, and after
     the segments before the cut that row holds the value's words (numpy
-    evaluation of the program)."""
+    evaluation of the program). The WINDOWED_CASES also run as two windows
+    of half the coset (a mesh shard's launch: the window's rows and the
+    next_step rows after them, by columns, the selectors at the coset's
+    rows): each window equals the eager folder over it, and the two
+    joined equal the whole coset's run."""
     lib, built = host_program
     rng = np.random.default_rng(43)
     for c, (air, num_public, log_n, launch, _) in enumerate(HOST_CASES):
@@ -323,6 +331,23 @@ def test_program_on_host_shim_matches_eager(host_program):
         grid, block = launch or (0, 0)
         lib.host_run_segments(fns, len(entries), ctypes.byref(args), grid, block, snaps.ctypes.data, live.size)
         np.testing.assert_array_equal(out, want, err_msg=type(air).__name__)
+
+        if c in WINDOWED_CASES:
+            half, joined = m // 2, []
+            for row0 in (0, half):
+                rows_at = (row0 + np.arange(half + step)) % m  # the window's rows, then its halo
+                win_cols = np.ascontiguousarray(tq[rows_at].T)
+                win_live = np.full((max(pl.live_rows, 1), half + step), 0xA5A5A5A5, np.uint32)
+                win_out = np.zeros((half, 4), np.uint32)
+                win_args = quotient_args(td, qd, pis, win_cols.ctypes.data, win_live.ctypes.data, win_out.ctypes.data,
+                                         coset.ctypes.data, pows.ctypes.data, row0, half, half + step)
+                win_snaps = np.zeros((len(entries), *win_live.shape), np.uint32)
+                lib.host_run_segments(fns, len(entries), ctypes.byref(win_args), grid, block, win_snaps.ctypes.data,
+                                      win_live.size)
+                plain = quotient_window_plain(air, pis, td, qd, tensor_from_mont_np(tq[rows_at]), alpha, row0, half)
+                np.testing.assert_array_equal(win_out, mont_np_from_tensor(plain), err_msg=f"{type(air).__name__} {row0}")
+                joined.append(win_out)
+            np.testing.assert_array_equal(np.concatenate(joined), want, err_msg=type(air).__name__)
 
         # the cuts
         n, segs = len(prog.code), pl.segments

@@ -46,6 +46,7 @@ from tapstark_torch.airs import (
 from tapstark_torch.challenger import BfChallenger
 from tapstark_torch.field import EF4, F
 from tapstark_torch.interop import config_from_reference, pcs_from_reference
+from tapstark_torch.mesh import Mesh
 from tapstark_torch.stark import VerificationError, check_constraints, prove, verify
 from tapstark_torch.stark.config import standard_config
 from tapstark_torch.stark.script_verifier import generate_script_verifier
@@ -203,16 +204,19 @@ def test_grind_on_a_tensor_batch_matches_host():
 
 
 def test_standard_config(monkeypatch):
-    """`standard_config(device="cpu")` and `config_from_reference` prove the
-    golden configuration to the frozen proof; without a device and without
-    a card `standard_config` raises, and a mesh is refused."""
+    """`standard_config(device="cpu")`, `config_from_reference` and
+    `standard_config` over a mesh of 2 CPU shards (the golden LDEs then run
+    as distributed four-step transforms) prove the golden configuration to
+    the frozen proof; without a device and without a card `standard_config`
+    raises, and so does a mesh whose primary device is not the PCS's."""
     trace, pis = _fib(8)
-    for config in (standard_config(device="cpu"), config_from_reference(j_standard_config(), "cpu")):
+    for config in (standard_config(device="cpu"), config_from_reference(j_standard_config(), "cpu"),
+                   standard_config(mesh=Mesh(["cpu"] * 2))):
         assert config.pcs.device == torch.device("cpu")
         proof = prove(config.pcs, FibonacciAir(), config.challenger(), trace, pis)
         assert hashlib.sha256(proof_to_bytes(proof)).hexdigest() == GOLDEN_PROOF_SHA256
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         standard_config()
-    with pytest.raises(NotImplementedError):
-        standard_config(mesh=object(), device="cpu")
+    with pytest.raises(ValueError):
+        standard_config(mesh=Mesh(["cpu"] * 2), device="cuda")

@@ -1,6 +1,6 @@
 """The JAX package's numbers that the PyTorch port is held to.
 
-    python tools/freeze_port_references.py [golden | wide | small | blake3_small | blake3 | blake3_port ...]
+    python tools/freeze_port_references.py [golden | wide | small | blake3_small | blake3 | blake3_port | mesh ...]
 
 Proves each configuration with `tapstark` on the CPU backend, verifies
 it, emits its Bitcoin-Script verifier, and prints one JSON line per
@@ -29,7 +29,11 @@ seconds of each step.
   quotient program alone peaks at ~82 GB on a CPU (README);
 - blake3_port: the JAX package's verify on the port's flagship proof,
   which `chip_study.py blake3` wrote to chiprun_out/blake3_proof.bin;
-  prints its digest (`chip_smoke.py` BLAKE3_PROOF) once verify accepts it.
+  prints its digest (`chip_smoke.py` BLAKE3_PROOF) once verify accepts it;
+- mesh: the configuration of `tests/test_mesh_prover.py` (Fibonacci 2^12
+  rows, blowup 2, 4 queries, 4 PoW bits) proved through a PCS over the
+  JAX package's mesh of 8 virtual CPU devices
+  (`tests/test_torch_mesh.py` MESH_PROOF, the proof digest only).
 """
 
 from __future__ import annotations
@@ -46,21 +50,34 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from chip_smoke import report_digest  # noqa: E402
 
 # chip_smoke blocks JAX and the JAX package for its own runs; this tool
-# proves with them.
+# proves with them, on 8 virtual CPU devices (the mesh target's, as in
+# tests/conftest.py).
 del sys.modules["jax"], sys.modules["tapstark"]
+if "xla_force_host_platform_device_count" not in os.environ.get("XLA_FLAGS", ""):
+    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=8").strip()
 
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 
 
-def make_pcs(log_blowup, nq, pow_bits, log_final=0):
+def make_pcs(log_blowup, nq, pow_bits, log_final=0, mesh=None):
     from tapstark.commit import BcManager, TapTreeMmcs
     from tapstark.fri import FriConfig, TwoAdicFriPcs
 
     fri = FriConfig(log_blowup=log_blowup, num_queries=nq, proof_of_work_bits=pow_bits,
                     mmcs=TapTreeMmcs(BcManager(), nq, ext=True), log_final_poly_len=log_final)
-    return TwoAdicFriPcs(TapTreeMmcs(BcManager(), nq, ext=False), fri)
+    return TwoAdicFriPcs(TapTreeMmcs(BcManager(), nq, ext=False), fri, mesh=mesh)
+
+
+def cpu_mesh():
+    """The JAX package's mesh over every (virtual) CPU device."""
+    import numpy as np
+    from jax.sharding import Mesh
+
+    from tapstark.mesh.ntt import AXIS
+
+    return Mesh(np.array(jax.devices()), (AXIS,))
 
 
 def sponge(blocks: int):
@@ -99,7 +116,7 @@ def quotient_op_by_op():
         jax.jit = real
 
 
-def run(name, air_name, log_n, log_blowup, nq, pow_bits, log_final=0, emit=True) -> None:
+def run(name, air_name, log_n, log_blowup, nq, pow_bits, log_final=0, emit=True, mesh=False) -> None:
     from tapstark.airs import FibonacciAir, generate_fibonacci_trace
     from tapstark.airs.recursion import RecursionAir, generate_recursion_trace
     from tapstark.challenger import BfChallenger
@@ -108,7 +125,7 @@ def run(name, air_name, log_n, log_blowup, nq, pow_bits, log_final=0, emit=True)
     from tapstark.stark.script_verifier import generate_script_verifier
     from tapstark.stark.serde import proof_to_bytes
 
-    pcs = make_pcs(log_blowup, nq, pow_bits, log_final)
+    pcs = make_pcs(log_blowup, nq, pow_bits, log_final, cpu_mesh() if mesh else None)
     if air_name == "recursion":
         trace, pis = generate_recursion_trace(1 << log_n)
         pis, air = [F(x) for x in pis], RecursionAir()
@@ -127,6 +144,7 @@ def run(name, air_name, log_n, log_blowup, nq, pow_bits, log_final=0, emit=True)
     t3 = time.perf_counter()
     data = proof_to_bytes(proof)
     out = {"name": name, "config": [air_name, log_n, log_blowup, nq, pow_bits, log_final],
+           "mesh": len(jax.devices()) if mesh else None,
            "proof": [hashlib.sha256(data).hexdigest(), len(data), proof.opening_proof.pow_witness],
            "report": report_digest(report) if emit else None,
            "prove_s": t1 - t0, "verify_s": t2 - t1, "emit_s": t3 - t2}
@@ -160,6 +178,7 @@ CONFIGS = {
     "blake3_small": [("BLAKE3_SMALL", "sponge", 8, 1, 1, 2, 0, False)],
     "blake3": [("BLAKE3_64_PROOF", "sponge", 12, 1, 16, 4, 0, False)],
     "blake3_full": [("BLAKE3_PROOF", "sponge", 16, 1, 16, 4, 0, False)],
+    "mesh": [("MESH_PROOF", "fib", 12, 1, 4, 4, 0, False, True)],
 }
 
 
