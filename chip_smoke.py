@@ -12,7 +12,9 @@ equality: the words are integers), holds a north-star
 trace-commit shard, an FRI layer and two
 small trees hashed on the card against the host SHA-NI engine, holds the blocks LDE
 route (2^22 rows) and the limb-matmul LDE (2^20 rows) against the fused
-route, proves the frozen golden Fibonacci configuration on the card and
+route, runs the phase "surface" (the API no prove calls, on the same
+kernels: the gather-free LDE and its halves, the SHA-256 batch API,
+`interpolate_coset` with its largest allocation bounded), proves the frozen golden Fibonacci configuration on the card and
 checks its proof bytes, then proves and verifies Fibonacci at 2^20 rows
 (the north star, on the fused LDE route) and at 2^22 rows (the blocks
 route), blowup 4, 28 queries and 8 PoW bits, through `tapstark_torch`'s
@@ -64,6 +66,7 @@ loaded.
 from __future__ import annotations
 
 import hashlib
+import importlib
 import json
 import re
 import statistics
@@ -244,6 +247,16 @@ MESH_COLS = [(11, 1024), (10, 512)]
 # the paths whose launches the JSON line's `dit_cols` and `quotient_program`
 # rows also report (`mesh`)
 MESH_PATHS = ("mesh step", "mesh prove 2^20")
+
+# the phase "surface": the gather-free coset LDE at the north star's trace
+# and the wide row's, (log_n, width, log_blowup); its halves at the first;
+# the SHA-256 batch API over SURFACE_LANES lanes, SURFACE_SAMPLE of them
+# held to hashlib; `interpolate_coset` on the wide row's LDE, no single
+# allocation above SURFACE_MAX_ALLOC bytes
+SURFACE_LDE = [(20, 2, 2), (18, 163, 4)]
+SURFACE_LANES = 1 << 20
+SURFACE_SAMPLE = 64
+SURFACE_MAX_ALLOC = 512 << 20
 
 # Bounds. The card's peaks (NVIDIA H100 SXM, 700 W): 3.35 TB/s of device
 # memory and, for the 32-bit integer instructions the kernels run, one
@@ -896,6 +909,152 @@ def check_lde_routes(dev) -> dict:
     return counts["limb matmul"]
 
 
+def _random_words_on(dev, rng, *shape) -> torch.Tensor:
+    return torch.from_numpy(rng.integers(0, 1 << 32, shape, dtype=np.uint64).astype(np.uint32).view(np.int32)).to(dev)
+
+
+def _padded_blocks(msgs: np.ndarray) -> np.ndarray:
+    """(N, L) message bytes → (N, nb, 16) big-endian words of the SHA-256
+    padded messages."""
+    n, size = msgs.shape
+    pad = np.zeros((n, (55 - size) % 64 + 9), dtype=np.uint8)
+    pad[:, 0] = 0x80
+    pad[:, -8:] = np.frombuffer((8 * size).to_bytes(8, "big"), dtype=np.uint8)
+    padded = np.concatenate([msgs, pad], axis=1)
+    return padded.view(">u4").astype(np.uint32).reshape(n, -1, 16)
+
+
+def _digest(words: torch.Tensor) -> bytes:
+    return words.cpu().numpy().view(np.uint32).astype(">u4").tobytes()
+
+
+def check_surface(dev) -> None:
+    """The rest of the JAX package's public surface on the card, through
+    K3/K4's and K5/K6's kernels: `coset_lde_nogather` at SURFACE_LDE
+    against `coset_lde_batch_auto` (the fused route) and its plain version,
+    its launches counted and its time beside the fused route's; its halves
+    `intt_to_bitrev` and `ntt_from_bitrev` against their plain versions (and
+    each other's inverse); `sha256_blocks`, `tagged_hash_fixed_batch` and
+    `tapbranch_hash_batch` over SURFACE_LANES lanes against their plain
+    versions and, at SURFACE_SAMPLE seeded lanes, the host hashes;
+    `interpolate_coset` on the wide row's LDE against the trace's
+    coefficients dotted with the point's powers, its time, its peak and
+    its largest allocation."""
+    from tapstark_torch.field.constants import MULT_GENERATOR as shift
+    from tapstark_torch.field.constants import P
+    from tapstark_torch.field.device import ef_const, ef_mul, ef_mul_base
+    from tapstark_torch.field.scalar import EF4
+    from tapstark_torch.hashes.sha256 import tagged_hash, tapbranch_hash
+    from tapstark_torch.hashes import sha256_device as sd
+    from tapstark_torch.poly import cols_ntt, cuda_ntt
+    from tapstark_torch.poly.interpolate import interpolate_coset
+    from tapstark_torch.poly.reduce import fp_sum_axis0
+
+    ntt = importlib.import_module("tapstark_torch.poly.ntt")  # the package binds `ntt` to the function
+    rng = np.random.default_rng(14)
+    for log_n, w, log_blowup in SURFACE_LDE:
+        where = f"2^{log_n} x {w}, blowup 2^{log_blowup}"
+        evals = _mont_on(dev, rng, 1 << log_n, w)
+        want = ntt.coset_lde_batch_auto(evals, log_blowup, shift)
+        cols_ntt.reset_launch_counts()
+        cuda_ntt.reset_launch_counts()
+        got = cols_ntt.coset_lde_nogather(evals, log_blowup, shift)
+        torch.cuda.synchronize()
+        counts = {**cols_ntt.launches, **cuda_ntt.launches}
+        compare("coset_lde_nogather", got, want, where)
+        compare("coset_lde_nogather", got, cols_ntt.coset_lde_nogather_plain(evals, log_blowup, shift), where)
+        expect_launches(f"coset_lde_nogather {where}", counts, {
+            "dif_cols": 2, "dif_cols.cols": 1, "dif_cols.last": 1, "dit_cols": 2, "dit_cols.first": 1,
+            "dit_cols.cols": 1, "lde_inverse": 0, "lde_forward": 0})
+        ms = median_ms(lambda: cols_ntt.coset_lde_nogather(evals, log_blowup, shift), 5)
+        fused_ms = median_ms(lambda: ntt.coset_lde_batch_auto(evals, log_blowup, shift), 5)
+        print(f"coset_lde_nogather {where}: equal to coset_lde_batch_auto and its plain version; {ms:.4f} ms, "
+              f"fused route {fused_ms:.4f} ms; launches {counts}", flush=True)
+        del evals, want, got
+        torch.cuda.empty_cache()
+
+    log_n, w, _ = SURFACE_LDE[0]
+    evals = _mont_on(dev, rng, 1 << log_n, w)
+    coeffs = cols_ntt.intt_to_bitrev(evals)
+    compare("intt_to_bitrev", coeffs, cols_ntt.intt_to_bitrev_plain(evals), f"2^{log_n} x {w}")
+    back = cols_ntt.ntt_from_bitrev(coeffs)
+    compare("ntt_from_bitrev", back, cols_ntt.ntt_from_bitrev_plain(coeffs), f"2^{log_n} x {w}")
+    compare("ntt_from_bitrev(intt_to_bitrev)", back, evals, f"2^{log_n} x {w}")
+    print(f"intt_to_bitrev, ntt_from_bitrev 2^{log_n} x {w}: equal to their plain versions and each other's "
+          f"inverse; {median_ms(lambda: cols_ntt.intt_to_bitrev(evals), 5):.4f} ms, "
+          f"{median_ms(lambda: cols_ntt.ntt_from_bitrev(coeffs), 5):.4f} ms", flush=True)
+    del evals, coeffs, back
+
+    lanes = SURFACE_LANES
+    sample = rng.choice(lanes, SURFACE_SAMPLE, replace=False)
+    msgs = rng.integers(0, 256, (lanes, 100), dtype=np.uint8)  # two blocks a lane
+    blocks = torch.from_numpy(_padded_blocks(msgs).view(np.int32)).to(dev)
+    leaves = _random_words_on(dev, rng, lanes, 20)  # 80 bytes: two blocks after the tag's midstate
+    h1, h2 = _random_words_on(dev, rng, lanes, 8), _random_words_on(dev, rng, lanes, 8)
+    h2[::7] = h1[::7]
+    h2[1::7, :4] = h1[1::7, :4]
+    runs = {
+        "sha256_blocks": (lambda: sd.sha256_blocks(blocks), lambda: sd.sha256_blocks_plain(blocks),
+                          lambda i: hashlib.sha256(msgs[i].tobytes()).digest()),
+        "tagged_hash_fixed_batch": (
+            lambda: sd.tagged_hash_fixed_batch(b"TapLeaf", leaves, 80),
+            lambda: sd.tagged_hash_fixed_batch_plain(b"TapLeaf", leaves, 80),
+            lambda i: tagged_hash(b"TapLeaf", _digest(leaves[i]))),
+        "tapbranch_hash_batch": (lambda: sd.tapbranch_hash_batch(h1, h2), lambda: sd.tapbranch_hash_batch_plain(h1, h2),
+                                 lambda i: tapbranch_hash(_digest(h1[i]), _digest(h2[i]))),
+    }
+    for name, (run, plain, on_host) in runs.items():
+        sd.reset_launch_counts()
+        got = run()
+        torch.cuda.synchronize()
+        counts = dict(sd.launches)
+        compare(name, got, plain(), f"{lanes} lanes")
+        expect_launches(name, counts, {"tapleaf_subtrees": 1, "tapbranch_levels": 0})
+        bad = [int(i) for i in sample if _digest(got[i]) != on_host(int(i))]
+        if bad:
+            raise AssertionError(f"{name}: lanes {bad} differ from the host hash")
+        print(f"{name} {lanes} lanes: equal to its plain version, {SURFACE_SAMPLE} lanes to the host hash; "
+              f"{median_ms(run, 5):.4f} ms, plain {median_ms(plain, 1):.1f} ms; launches {counts}", flush=True)
+    got = sd.tapbranch_fused_wm(h1.T, h2.T)
+    compare("tapbranch_fused_wm", got.T, sd.tapbranch_hash_batch(h1, h2), f"{lanes} lanes")
+    del blocks, leaves, h1, h2, got
+
+    log_n, w, log_blowup = SURFACE_LDE[1]
+    trace = _mont_on(dev, rng, 1 << log_n, w)
+    lde = ntt.coset_lde_batch_auto(trace, log_blowup, shift)
+    z = EF4([int(v) for v in rng.integers(0, P, 4)])
+    coeffs = ntt.intt(trace)  # natural order: p(X) = sum c_j X^j on H_n, and on shift·H_N
+    powers = ef_const(EF4.one(), dev)[None, :]
+    step = z
+    for _ in range(log_n):  # z^0 .. z^(n-1)
+        powers = torch.cat([powers, ef_mul(powers, ef_const(step, dev))])
+        step = step * step
+    want = torch.cat([fp_sum_axis0(ef_mul_base(powers[:, None, :], coeffs[:, c0 : c0 + 16]))
+                      for c0 in range(0, w, 16)])
+    del trace, coeffs, powers
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.memory._record_memory_history(enabled="all", context=None, stacks="python", max_entries=1 << 20)
+    got = interpolate_coset(lde, shift, z)
+    torch.cuda.synchronize()
+    snapshot = torch.cuda.memory._snapshot()
+    torch.cuda.memory._record_memory_history(enabled=None)
+    peak = torch.cuda.max_memory_allocated(dev)
+    allocs = [e["size"] for trace_ in snapshot["device_traces"] for e in trace_ if e["action"] == "alloc"]
+    largest = max(allocs, default=0)
+    compare("interpolate_coset", got, want, f"2^{log_n + log_blowup} x {w}")
+    if largest > SURFACE_MAX_ALLOC:
+        raise AssertionError(f"interpolate_coset allocated {largest} bytes at once, more than {SURFACE_MAX_ALLOC}")
+    ms = median_ms(lambda: interpolate_coset(lde, shift, z), 3)
+    print(f"interpolate_coset 2^{log_n + log_blowup} x {w}: equal to the trace's coefficients dotted with the "
+          f"point's powers; {ms:.3f} ms; max_memory_allocated {before} bytes before, {peak} during "
+          f"(+{peak - before}); {len(allocs)} allocations, the largest {largest} bytes", flush=True)
+    del lde, got, want
+    torch.cuda.empty_cache()
+
+
 def run_counted(dev, fn):
     """fn() with spans on, and the peak device memory and every launch
     count reset just before it; prints the spans, the launches and the
@@ -904,7 +1063,8 @@ def run_counted(dev, fn):
     from tapstark_torch.challenger import device_tail
     from tapstark_torch.commit.device_commit import DeviceValues
     from tapstark_torch.hashes import sha256_device
-    from tapstark_torch.poly import cols_ntt, cuda_ntt, ntt
+    from tapstark_torch.poly import cols_ntt, cuda_ntt
+    ntt = importlib.import_module("tapstark_torch.poly.ntt")  # the package binds `ntt` to the function
     from tapstark_torch.poly import matmul_ntt as mm
     from tapstark_torch.utils import profiling
 
@@ -1067,7 +1227,7 @@ def check_bitrev_cols(dev, stats: dict) -> None:
     timed against its bound (the words read once and written once) at the
     provers' shapes, with one index_select of the LDE's transpose as the
     library time at the first."""
-    from tapstark_torch.poly import ntt
+    ntt = importlib.import_module("tapstark_torch.poly.ntt")  # the package binds `ntt` to the function
     from tapstark_torch.poly.powers import bitrev_indices_dev
 
     rng = np.random.default_rng(9)
@@ -1256,7 +1416,8 @@ def check_mesh_lde(dev, stats: dict, mesh=None) -> None:
     against its plain version and bound (the JSON row's `shapes`)."""
     from tapstark_torch.field.constants import MULT_GENERATOR as shift
     from tapstark_torch.mesh import collectives, distributed_coset_lde, distributed_ntt
-    from tapstark_torch.poly import cols_ntt, cuda_ntt, ntt
+    from tapstark_torch.poly import cols_ntt, cuda_ntt
+    ntt = importlib.import_module("tapstark_torch.poly.ntt")  # the package binds `ntt` to the function
 
     mesh = make_mesh(dev, mesh)
     log_n, w, log_blowup = MESH_LDE
@@ -1311,7 +1472,8 @@ def check_mesh_step(dev, stats: dict, segments: int, mesh=None) -> dict:
     from tapstark_torch.field.scalar import EF4, F
     from tapstark_torch.hashes.blake3 import compress_batch
     from tapstark_torch.mesh import collectives, make_sharded_prover_step
-    from tapstark_torch.poly import cols_ntt, cuda_ntt, ntt
+    from tapstark_torch.poly import cols_ntt, cuda_ntt
+    ntt = importlib.import_module("tapstark_torch.poly.ntt")  # the package binds `ntt` to the function
     from tapstark_torch.poly.domain import TwoAdicMultiplicativeCoset
     from tapstark_torch.poly.fold import fold_matrix
 
@@ -1454,6 +1616,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
+    started = time.perf_counter()
 
     phase("device")
     smi = subprocess.run(
@@ -1493,6 +1656,9 @@ def main() -> int:
 
     phase("lde routes: blocks 2^22 and limb matmul 2^20 vs fused")
     path_launches = {"matmul lde 2^20": check_lde_routes(dev)}
+
+    phase("surface: the gather-free LDE, the SHA-256 batch API and interpolate_coset on the card")
+    check_surface(dev)
 
     phase("quotient kernels: generate and build each AIR's program before its timed prove")
     from tapstark_torch.airs import Blake3SpongeChainAir, FibonacciAir, RecursionAir
@@ -1585,6 +1751,7 @@ def main() -> int:
         raise AssertionError(f"JAX or the JAX package was imported: {loaded}")
 
     kernels = kernel_rows(stats, path_launches)
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - started:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}

@@ -60,6 +60,7 @@ exits at once.
 
 from __future__ import annotations
 
+import importlib
 import os
 import statistics
 import subprocess
@@ -513,7 +514,7 @@ def gather(dev) -> None:
     and one index_select of the LDE's transpose, and at up to 8 columns
     its tile kernel against its narrow form; CUDA-event medians of 10, in
     turns; all equal."""
-    from tapstark_torch.poly import ntt
+    ntt = importlib.import_module("tapstark_torch.poly.ntt")  # the package binds `ntt` to the function
     from tapstark_torch.poly.powers import bitrev_indices_dev
 
     tile_only = _tile_only_gather()
@@ -658,7 +659,7 @@ def mesh(dev) -> None:
     from tapstark_torch.field.constants import MULT_GENERATOR as shift
     from tapstark_torch.mesh import Mesh, collectives, distributed_coset_lde, dryrun_multichip
     from tapstark_torch.mesh.ntt import split
-    from tapstark_torch.poly import ntt
+    ntt = importlib.import_module("tapstark_torch.poly.ntt")  # the package binds `ntt` to the function
     from tapstark_torch.stark.config import standard_config
 
     cards = torch.cuda.device_count()

@@ -48,6 +48,14 @@ OUT_WORDS = 8  # squeeze rate (output words per compression)
 FLAGS = CHUNK_START | CHUNK_END | ROOT
 
 
+def argwhere_first(ok):
+    """Index of the first True of a 1-D bool tensor, or len(ok) when none,
+    as a 0-dim tensor where ok lies (no host sync)."""
+    import torch
+
+    return torch.where(ok.any(), torch.argmax(ok.to(torch.uint8)), ok.shape[0])
+
+
 class Blake3Compression:
     """The real duplex step: blake3 compression, first 8 output words."""
 
@@ -205,8 +213,8 @@ class BfChallenger:
                 import torch
 
                 ws = torch.arange(start, stop, dtype=torch.int64, device=dev)
-                hits = torch.nonzero(self._grind_batch_ok(ws, bits))
-                witness = start + int(hits[0, 0]) if hits.numel() else None
+                hit = int(argwhere_first(self._grind_batch_ok(ws, bits)))
+                witness = start + hit if hit < stop - start else None
             else:
                 ws = np.arange(start, stop, dtype=np.uint64).astype(np.uint32)
                 idx = np.flatnonzero(self._grind_batch_ok(ws, bits))

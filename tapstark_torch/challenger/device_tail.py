@@ -29,7 +29,7 @@ import torch
 
 from ..field.constants import P
 from ..field.device import to_mont
-from ..hashes.blake3 import CHUNK_END, CHUNK_START, IV, ROOT, compress_batch
+from ..hashes.blake3 import CHUNK_END, CHUNK_START, IV, ROOT, compress_batch, compress_scan  # noqa: F401 (the reference's name)
 from . import FLAGS, RATE, Blake3Compression, TestPermutation
 
 # steps taken by every chain since the process started (tests and

@@ -6,7 +6,14 @@ from .bitcomm import (
     BitCommitmentU32,
 )
 from .mmcs import TapTreeMmcs, fmatrix_row_scalars, scalars_to_limbs
-from .taptree import LeafNode, verify_inclusion
+from .taptree import (
+    CompleteTaptree,
+    LeafNode,
+    NodeInfo,
+    build_taptree,
+    combine_with_order,
+    verify_inclusion,
+)
 from .tcs import TCS, CommitedData, CommitedProof, FMatrix, padding_matrix
 from .winternitz import Winternitz, to_digits, u32_compress
 
@@ -19,7 +26,11 @@ __all__ = [
     "TapTreeMmcs",
     "fmatrix_row_scalars",
     "scalars_to_limbs",
+    "CompleteTaptree",
     "LeafNode",
+    "NodeInfo",
+    "build_taptree",
+    "combine_with_order",
     "verify_inclusion",
     "TCS",
     "CommitedData",

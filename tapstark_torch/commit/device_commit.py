@@ -26,6 +26,9 @@
 
 On a CUDA tensor the hashing runs on the card's kernels, on a CPU tensor
 through their plain versions. The suffix builder is plain torch on both.
+The reference's names for its hash layer (`compress_batch`,
+`compress_batch_wm`, `sha256`, `tapbranch_fused_wm`) are the port's, and
+`bitrev_rows_dev` is `poly.ntt.bit_reverse_rows`.
 
 Reference anchor: the num_queries-cloned tree commit this re-architects is
 tap-stark's basic/src/tcs/mod.rs:197-292.
@@ -37,14 +40,18 @@ import numpy as np
 import torch
 
 from ..field.device import from_mont
-from ..hashes.sha256 import compact_size
-from ..hashes.sha256_device import (
+from ..hashes.sha256 import compact_size, sha256  # noqa: F401 (the reference's names)
+from ..hashes.sha256_device import (  # noqa: F401 (compress_batch*, tapbranch_fused_wm: the reference's names)
     BRANCH_LEVELS,
     LEAF_LEVELS,
+    compress_batch,
+    compress_batch_wm,
     tag_midstate_words,
+    tapbranch_fused_wm,
     tapbranch_levels,
     tapleaf_subtrees,
 )
+from ..poly.ntt import bit_reverse_rows
 from ..script import opcodes as op
 
 _OP_FROMALT = op.OP_FROMALTSTACK
@@ -55,6 +62,13 @@ _OP_NOP = op.OP_NOP
 # bytes of one tail slot: push opcode, up to 4 CScriptNum data bytes,
 # FROMALTSTACK, EQUALVERIFY and, on the index slot, OP_1
 _SLOT_BYTES = 8
+
+
+def bitrev_rows_dev(x: torch.Tensor, log_n: int) -> torch.Tensor:
+    """y[p] = x[brv(p)] along axis 0 of a 2^log_n-row tensor, where it lies."""
+    if x.shape[0] != 1 << log_n:
+        raise ValueError(f"bitrev_rows_dev: {x.shape[0]} rows, expected 2^{log_n}")
+    return bit_reverse_rows(x)
 
 
 def _pack_words_np(bytes_arr: np.ndarray) -> np.ndarray:

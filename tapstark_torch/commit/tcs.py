@@ -44,6 +44,7 @@ import torch
 from ..hashes.sha256 import compact_size, sha256
 from ..script import opcodes as op
 from ..script.builder import push_int
+from ..utils import log2_ceil  # noqa: F401 (the reference's name)
 from ..utils.profiling import span
 from .bitcomm import (
     COMMIT_TYPE_U128,
@@ -286,6 +287,19 @@ LEVEL_CUTOFF = 8
 # 2^24 and 2^25 leaves are one group; the 2^24 of the JAX package was sized
 # for a 16 GB TPU.
 _DEVICE_GROUP_LANES = 1 << 30
+
+
+def device_commit_will_serve(height: int, device) -> bool:
+    """True when a commit of `height` leaves whose matrices carry tensors on
+    `device` hashes where they lie (`_commit_device`) and serves its leaf
+    values from there. The port's rule takes that path whenever every
+    matrix holds a tensor, on the card or on the CPU, whatever the height;
+    host matrices (device None) take the native engine."""
+    if device is None:
+        return False
+    if height < 1:
+        raise ValueError(f"device_commit_will_serve: {height} leaves")
+    return torch.device(device).type in ("cpu", "cuda")
 
 
 _TREE_POOL = None

@@ -74,6 +74,10 @@ def fp_mul(a, b):
     return _narrow(_redc(_wide(a) * _wide(b)))
 
 
+def fp_square(a):
+    return fp_mul(a, a)
+
+
 def fp_pow(a: torch.Tensor, e: int) -> torch.Tensor:
     """a**e for a host-known exponent (square and multiply)."""
     acc = None
@@ -170,6 +174,40 @@ def ef_mul_base(a, b):
     """(..., 4) ext times (...,) base, broadcast."""
     b = b if isinstance(b, int) else b[..., None]
     return fp_mul(a, b)
+
+
+def ef_add_base(a, b):
+    """(..., 4) ext plus (...,) base: the base element adds into
+    coefficient 0."""
+    out = _narrow(_wide(a)).clone()
+    out[..., 0] = fp_add(out[..., 0], b)
+    return out
+
+
+def ef_square(a):
+    return ef_mul(a, a)
+
+
+def ef_pow(a: torch.Tensor, e: int) -> torch.Tensor:
+    """a**e for a host-known exponent (square and multiply)."""
+    acc = None
+    base = _wide(a)
+    while e:
+        if e & 1:
+            acc = base if acc is None else _ef_mul_wide(acc, base)
+        e >>= 1
+        if e:
+            base = _ef_mul_wide(base, base)
+    if acc is None:
+        return ef_one_like(a)
+    return _narrow(acc)
+
+
+def ef_one_like(a: torch.Tensor) -> torch.Tensor:
+    """The extension's one (Montgomery) in a's shape (..., 4)."""
+    out = torch.zeros(a.shape, dtype=torch.int32, device=a.device)
+    out[..., 0] = MONT_ONE
+    return out
 
 
 _ROOT4_POWS_MONT = [pow(ROOT4, k, P) * R_MOD_P % P for k in range(4)]

@@ -1,7 +1,13 @@
 from .config import FriConfig
 from .pcs import BatchOpening, PcsProverData, TwoAdicFriPcs
-from .proof import BfQueryProof, FriProof
-from .verifier import FriError
+from .proof import BfQueryProof, FriProof, get_leaf_index_by_query_index
+from .prover import bf_prove
+from .verifier import (
+    FriChallenges,
+    FriError,
+    verify_challenges,
+    verify_shape_and_sample_challenges,
+)
 
 __all__ = [
     "FriConfig",
@@ -10,5 +16,10 @@ __all__ = [
     "TwoAdicFriPcs",
     "BfQueryProof",
     "FriProof",
+    "get_leaf_index_by_query_index",
+    "bf_prove",
+    "FriChallenges",
     "FriError",
+    "verify_challenges",
+    "verify_shape_and_sample_challenges",
 ]

@@ -9,6 +9,12 @@ from ..commit.tcs import CommitedProof
 from ..field.scalar import EF4
 
 
+def get_leaf_index_by_query_index(query_index: int) -> tuple[int, int, int]:
+    """(leaf index, pair index, sibling pair index) of a query index."""
+    index_i = query_index >> 1
+    return index_i >> 1, index_i, index_i ^ 1
+
+
 @dataclass
 class BfQueryProof:
     input_proof: Any  # list[BatchOpening] for the PCS input rounds

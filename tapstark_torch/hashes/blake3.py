@@ -134,10 +134,25 @@ def compress_batch(block_words, counter=0, block_len=64, flags=CHUNK_START | CHU
 
     block_words: 16 numpy uint32 arrays, or 16 int64 torch tensors with
     words in [0, 2^32) (torch has no unsigned 32-bit arithmetic), of a
-    common shape and device. cv: 8 chaining-value ints (defaults to the
-    blake3 IV). Returns the 8 digest words h_i = v_i ^ v_{i+8}, of the
+    common shape and device. cv: 8 chaining-value words, ints or tensors
+    that broadcast to the block words (defaults to the blake3 IV). Returns the 8 digest words h_i = v_i ^ v_{i+8}, of the
     block words' type."""
     zero = block_words[0] * 0
     st = [zero + (v & _M32) for v in (*cv, *IV[:4], counter, counter >> 32, block_len, flags)]
     _rounds(st, block_words)
     return [st[i] ^ st[i + 8] for i in range(8)]
+
+
+def compress_scan(cv, block, counter: int, block_len, flags: int):
+    """The reference's compression on vector state (`compress_scan`, its
+    argument order): cv (..., 8) and block (..., 16) torch tensors of
+    32-bit words (int32 bits or int64 values) → (..., 8) digest words as
+    int32 bits, on `compress_batch`. block_len may be a tensor that
+    broadcasts to the lanes."""
+    import torch
+
+    cv, block = (x.to(torch.int64) & _M32 for x in (cv, block))
+    out = compress_batch([block[..., i] for i in range(16)], counter, block_len, flags,
+                         cv=[cv[..., i] for i in range(8)])
+    out = torch.stack(torch.broadcast_tensors(*out), dim=-1)
+    return torch.where(out >= 1 << 31, out - (1 << 32), out).to(torch.int32)

@@ -17,6 +17,13 @@
 - `compress_wm` and `tapbranch_wm` are the one-step forms (one compression
   chain per lane; one TapBranch node per lane), run on the same two kernels
   with zero levels above the leaves and one level.
+- The reference's batch API keeps its shapes, word-minor (`compress_batch`,
+  `sha256_blocks`, `tagged_hash_fixed_batch`, `tapbranch_hash_batch`) and
+  word-major (`compress_batch_wm`, `tapbranch_hash_batch_wm`,
+  `tapbranch_fused_wm`): each runs all its lanes' blocks as one
+  `compress_wm` (nb chained blocks a lane), and `tapbranch_fused_wm` as one
+  `tapbranch_wm`; the `*_plain` twins run the same steps on the plain
+  versions.
 
 Words are stored as int32 tensors holding the uint32 bits (torch's uint32
 lacks `+` and shifts); the plain versions do their math in int64. Each
@@ -34,6 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import numpy as np
 import torch
@@ -428,3 +436,129 @@ def tapbranch_wm(h1: torch.Tensor, h2: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"tapbranch_wm: shapes {tuple(h1.shape)}, {tuple(h2.shape)}")
     # each lane a repetition of one two-node level
     return tapbranch_levels(torch.stack([h1, h2], dim=2), 1).view(8, -1)
+
+
+# ---------------------------------------------------------------------------
+# The reference's batch API: its shapes, int32 words
+# ---------------------------------------------------------------------------
+
+
+def _words_on(words: np.ndarray, device) -> torch.Tensor:
+    """uint32 numpy words → int32 tensor of the same bits on `device`."""
+    return torch.from_numpy(np.ascontiguousarray(words, dtype=np.uint32).view(np.int32)).to(device)
+
+
+def _lanes_wm(state_wm: torch.Tensor, blocks_wm: torch.Tensor, compress) -> torch.Tensor:
+    """state (8, ...) (broadcast to the lanes), blocks (16·nb, ...) → (8,
+    ...): nb chained compressions a lane, one `compress` call."""
+    lanes = tuple(blocks_wm.shape[1:])
+    m = math.prod(lanes)
+    out = compress(state_wm.expand((8,) + lanes).reshape(8, m), blocks_wm.reshape(blocks_wm.shape[0], m))
+    return out.reshape((8,) + lanes)
+
+
+def _lanes(state: torch.Tensor, blocks: torch.Tensor, compress) -> torch.Tensor:
+    """state (..., 8) (broadcast to the lanes), blocks (..., 16·nb) → (...,
+    8): `_lanes_wm` on the transposed words."""
+    lead = tuple(blocks.shape[:-1])
+    m = math.prod(lead)
+    out = compress(state.expand(lead + (8,)).reshape(m, 8).T, blocks.reshape(m, blocks.shape[-1]).T)
+    return out.T.reshape(lead + (8,))
+
+
+def compress_batch_wm(state_wm: torch.Tensor, block_wm: torch.Tensor) -> torch.Tensor:
+    """One SHA-256 compression a lane, word-major: state (8, ...), block
+    (16, ...) big-endian words → (8, ...)."""
+    return _lanes_wm(state_wm, block_wm, compress_wm)
+
+
+def compress_batch(state: torch.Tensor, block: torch.Tensor) -> torch.Tensor:
+    """One SHA-256 compression a lane: state (..., 8), block (..., 16)
+    big-endian words → new state (..., 8)."""
+    return _lanes(state, block, compress_wm)
+
+
+def _sha256_blocks(blocks: torch.Tensor, compress) -> torch.Tensor:
+    n, nb, _ = blocks.shape
+    return _lanes(_words_on(IV, blocks.device), blocks.reshape(n, 16 * nb), compress)
+
+
+def sha256_blocks(blocks: torch.Tensor) -> torch.Tensor:
+    """SHA-256 of pre-padded messages: blocks (N, nb, 16) big-endian words
+    → digests (N, 8), the nb compressions of a lane chained from the IV."""
+    return _sha256_blocks(blocks, compress_wm)
+
+
+def sha256_blocks_plain(blocks: torch.Tensor) -> torch.Tensor:
+    return _sha256_blocks(blocks, compress_wm_plain)
+
+
+def _tagged_hash(tag: bytes, msg_words: torch.Tensor, msg_bytes: int, compress) -> torch.Tensor:
+    w = msg_words.shape[-1]
+    if msg_bytes != 4 * w:
+        raise ValueError(f"tagged_hash_fixed_batch: {msg_bytes} bytes in {w} words")
+    dev = msg_words.device
+    pad = _words_on(_tag_msg_padding_words(msg_bytes), dev)
+    padded = torch.cat([msg_words, pad.expand(tuple(msg_words.shape[:-1]) + pad.shape)], dim=-1)
+    return _lanes(_words_on(tag_midstate_words(tag), dev), padded, compress)
+
+
+def tagged_hash_fixed_batch(tag: bytes, msg_words: torch.Tensor, msg_bytes: int) -> torch.Tensor:
+    """BIP-340 tagged hash of fixed-length messages of whole words:
+    msg_words (..., W) big-endian, msg_bytes = 4·W → (..., 8). The lanes
+    start from the tag's midstate and hash the message and the padding
+    words (whose bit length counts the 64-byte prefix)."""
+    return _tagged_hash(tag, msg_words, msg_bytes, compress_wm)
+
+
+def tagged_hash_fixed_batch_plain(tag: bytes, msg_words: torch.Tensor, msg_bytes: int) -> torch.Tensor:
+    return _tagged_hash(tag, msg_words, msg_bytes, compress_wm_plain)
+
+
+def _lex_sort_pair(h1: torch.Tensor, h2: torch.Tensor, word_axis: int) -> tuple:
+    """(lo, hi) of two batched 8-word digests by lexicographic byte order,
+    which is big-endian word order; `word_axis` holds the 8 words."""
+    less = decided = None
+    for i in range(8):
+        a, b = _u(h1.select(word_axis, i)), _u(h2.select(word_axis, i))
+        if less is None:
+            less, decided = a < b, a != b
+        else:
+            less = less | (~decided & (a < b))
+            decided = decided | (a != b)
+    m = less.unsqueeze(word_axis)
+    return torch.where(m, h1, h2), torch.where(m, h2, h1)
+
+
+def _tapbranch(h1: torch.Tensor, h2: torch.Tensor, compress) -> torch.Tensor:
+    lo, hi = _lex_sort_pair(h1, h2, -1)
+    return _tagged_hash(b"TapBranch", torch.cat([lo, hi], dim=-1), 64, compress)
+
+
+def tapbranch_hash_batch(h1: torch.Tensor, h2: torch.Tensor) -> torch.Tensor:
+    """BIP-341 TapBranch of each lane's pair: h1, h2 (N, 8) big-endian
+    digest words → (N, 8); the pair sorts lexicographically, then the
+    tagged hash of lo || hi."""
+    return _tapbranch(h1, h2, compress_wm)
+
+
+def tapbranch_hash_batch_plain(h1: torch.Tensor, h2: torch.Tensor) -> torch.Tensor:
+    return _tapbranch(h1, h2, compress_wm_plain)
+
+
+def tapbranch_hash_batch_wm(h1: torch.Tensor, h2: torch.Tensor) -> torch.Tensor:
+    """`tapbranch_hash_batch` word-major: h1, h2 (8, ...) → (8, ...); the
+    message block and the constant padding block chained a lane."""
+    lo, hi = _lex_sort_pair(h1, h2, 0)
+    ones = (1,) * (h1.dim() - 1)
+    mid = _words_on(tag_midstate_words(b"TapBranch"), h1.device).view((8,) + ones)
+    pad = _words_on(_tag_msg_padding_words(64), h1.device).view((16,) + ones)
+    return _lanes_wm(mid, torch.cat([lo, hi, pad.expand((16,) + tuple(h1.shape[1:]))]), compress_wm)
+
+
+def tapbranch_fused_wm(h1: torch.Tensor, h2: torch.Tensor) -> torch.Tensor:
+    """TapBranch word-major on `tapbranch_wm` (K6's kernel on the card): h1,
+    h2 (8, ...) → (8, ...), equal to `tapbranch_hash_batch_wm`."""
+    lanes = tuple(h1.shape[1:])
+    m = math.prod(lanes)
+    return tapbranch_wm(h1.reshape(8, m), h2.reshape(8, m)).reshape((8,) + lanes)

@@ -21,8 +21,9 @@ from .mesh import Mesh
 from .stark.config import StarkConfig
 
 
-def tensor_from_mont_np(a: np.ndarray, device="cpu") -> torch.Tensor:
-    """Montgomery uint32 numpy array → int32 tensor of the same words."""
+def tensor_from_mont_np(a: np.ndarray, device) -> torch.Tensor:
+    """Montgomery uint32 numpy array → int32 tensor of the same words on
+    `device`."""
     return torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint32).view(np.int32)).to(device)
 
 

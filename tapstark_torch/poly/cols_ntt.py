@@ -22,10 +22,13 @@ Each wrapper runs its kernel (entry points in
 twin `dif_cols.cuh`) for a CUDA tensor and its plain version for a CPU
 tensor, and raises for anything else. The pipelines around them:
 
-- `ntt_cols_fourstep` is `ntt_pallas`; `intt_to_bitrev_unscaled` (`dif_cols`
-  over R, then `dif_cols_last`) is `intt_to_bitrev_pallas` without its
-  1/n, and `dit_cols_first` with one block and no shift, then `dit_cols`
-  over its C rows, is `ntt_from_bitrev_pallas`;
+- `ntt_cols_fourstep` is `ntt_pallas`; `intt_to_bitrev` (`dif_cols` over
+  R, then `dif_cols_last` with the 1/n) is `intt_to_bitrev_pallas`;
+  `ntt_from_bitrev` (`dit_cols_first` with one block and no shift, then
+  `dit_cols` over its C rows) is `ntt_from_bitrev_pallas`;
+- `coset_lde_nogather` is `coset_lde_batch_pallas_nogather`: the two
+  halves above with the shift powers (in bitrev_n order) and the zero pad
+  of the bit-reversed big domain between them, as plain torch;
 - `coset_lde_padded` is `coset_lde_batch_pallas` (the zero-padded LDE);
 - `coset_lde_blocks` is `coset_lde_batch_pallas_blocks` (`blow` pre-scaled
   n-point NTTs as one NTT of width blow·w), which `coset_lde_batch_auto`
@@ -45,10 +48,10 @@ import torch
 
 from ..field.constants import P, two_adic_generator
 from ..field.device import fp_const, fp_mul
-from ..utils import log2_strict
+from ..utils import bitrev_indices, log2_strict
 from .cuda_ntt import _check_cuda, _raise_on, _stream_ptr, block_scales
 from .dit_tables import dit_stage_pairs_dev, first_member_tables_dev, last_member_tables_dev
-from .ntt import _butterfly_stages, bit_reverse_rows, intt, ntt, scale_by_shift_powers
+from .ntt import _butterfly_stages, bit_reverse_rows, coset_lde_batch, intt, ntt, scale_by_shift_powers
 from .powers import bitrev_indices_dev, geom_powers_mont_dev
 
 # The largest log R one kernel launch takes (csrc/ntt_cols.cu kMaxLogR;
@@ -315,15 +318,16 @@ def dif_cols_last(a: torch.Tensor, log_c: int, n_inv: bool = False) -> torch.Ten
     return out
 
 
-def intt_to_bitrev_unscaled(evals: torch.Tensor) -> torch.Tensor:
-    """(n, w) natural evaluations → coefficients in bitrev_n order, without
-    the 1/n of `intt_to_bitrev_pallas` (the blocks route folds it into the
-    forward half's scale table): `dif_cols` over the natural (R, C·w) view,
-    then `dif_cols_last`, and nothing between them."""
+def intt_to_bitrev(evals: torch.Tensor, n_inv: bool = True) -> torch.Tensor:
+    """(n, w) natural evaluations → coefficients in bitrev_n order, times
+    1/n (twin of `intt_to_bitrev_pallas`): `dif_cols` over the natural
+    (R, C·w) view, then `dif_cols_last`, and nothing between them. With
+    n_inv False the 1/n is left out: the blocks route folds it into its
+    forward half's scale table."""
     n, w = evals.shape
     log_r, log_c = split(log2_strict(n))
     a = dif_cols(evals.reshape(1 << log_r, w << log_c).contiguous(), log_r, True)  # A[p1, (i2, w)]
-    return dif_cols_last(a, log_c)  # flat p1·C + p2
+    return dif_cols_last(a, log_c, n_inv)  # flat p1·C + p2
 
 
 def coset_lde_padded(evals: torch.Tensor, log_blowup: int, shift: int) -> torch.Tensor:
@@ -347,7 +351,76 @@ def coset_lde_blocks(evals: torch.Tensor, log_blowup: int, shift: int) -> torch.
     log_n = log2_strict(n)
     if log_n < 4:
         return coset_lde_padded(evals, log_blowup, shift)
-    coeffs_brv = intt_to_bitrev_unscaled(evals)
+    coeffs_brv = intt_to_bitrev(evals, n_inv=False)
     b = dit_cols_first(coeffs_brv, log_blowup, shift, n_inv=True)  # B[p2, (k1, rb, w)]
     y = dit_cols(b, split(log_n)[1], False)  # y[k2, (k1, rb, w)], k = k2·R + k1
     return y.reshape(n << log_blowup, w)
+
+
+def bitrev_indices_np(log_n: int):
+    """Bit-reversal permutation of size 2^log_n (uint32 numpy)."""
+    return bitrev_indices(log_n)
+
+
+def intt_to_bitrev_plain(evals: torch.Tensor) -> torch.Tensor:
+    """`intt_to_bitrev` from the plain column transforms."""
+    n, w = evals.shape
+    log_r, log_c = split(log2_strict(n))
+    a = dif_cols_plain(evals.reshape(1 << log_r, w << log_c), log_r, True)
+    return dif_cols_last_plain(a, log_c, n_inv=True)
+
+
+def ntt_from_bitrev_plain(coeffs_brv: torch.Tensor) -> torch.Tensor:
+    """`ntt_from_bitrev` from the plain column transforms."""
+    n, w = coeffs_brv.shape
+    b = dit_cols_first_plain(coeffs_brv, 0, 1)
+    return dit_cols_plain(b, split(log2_strict(n))[1], False).reshape(n, w)
+
+
+def ntt_from_bitrev(coeffs_brv: torch.Tensor) -> torch.Tensor:
+    """(n, w) coefficients in bitrev_n order → natural evaluations (twin of
+    `ntt_from_bitrev_pallas`): `dit_cols_first` with one block and shift 1
+    (its scales are all one: the reference's view, transpose, `dit_cols`
+    over R and outer twiddle), then `dit_cols` over its C rows."""
+    n, w = coeffs_brv.shape
+    b = dit_cols_first(coeffs_brv, 0, 1)  # B[brv_C(i2), (k1, w)]
+    return dit_cols(b, split(log2_strict(n))[1], False).reshape(n, w)  # flat k2·R + k1 = k
+
+
+@functools.lru_cache(maxsize=None)
+def shift_powers_brv(log_n: int, shift: int, device) -> torch.Tensor:
+    """(2^log_n,) Montgomery shift^i at position brv_n(i), on `device`."""
+    return geom_powers_mont_dev(shift, log_n, 1, device).index_select(0, bitrev_indices_dev(log_n, device))
+
+
+def _nogather(evals: torch.Tensor, log_blowup: int, shift: int, inverse, forward) -> torch.Tensor:
+    """The gather-free LDE around its two halves: `inverse` to bitrev_n
+    coefficients, coefficient i times shift^i (the powers in bitrev_n
+    order), the zero pad that puts bitrev_n position p at bitrev_N position
+    p·blow, `forward` from bitrev_N order."""
+    n, w = evals.shape
+    log_n = log2_strict(n)
+    coeffs_brv = inverse(evals)
+    sp_brv = shift_powers_brv(log_n, shift % P, evals.device)
+    padded = torch.zeros((n, 1 << log_blowup, w), dtype=torch.int32, device=evals.device)
+    padded[:, 0, :] = fp_mul(coeffs_brv, sp_brv[:, None])
+    return forward(padded.view(n << log_blowup, w))
+
+
+def coset_lde_nogather_plain(evals: torch.Tensor, log_blowup: int, shift: int) -> torch.Tensor:
+    """`coset_lde_nogather` from the plain column transforms (below 2^4
+    rows the plain radix-2 LDE, which equals the padded route)."""
+    if log2_strict(evals.shape[0]) < 4:
+        return coset_lde_batch(evals, log_blowup, shift)
+    return _nogather(evals, log_blowup, shift, intt_to_bitrev_plain, ntt_from_bitrev_plain)
+
+
+def coset_lde_nogather(evals: torch.Tensor, log_blowup: int, shift: int) -> torch.Tensor:
+    """Coset LDE with no row gather (twin of
+    `coset_lde_batch_pallas_nogather`): `intt_to_bitrev`, the shift powers
+    in bitrev_n order, the zero pad of the bit-reversed big domain, then
+    `ntt_from_bitrev` over all blow·n rows (four launches). Below 2^4 rows
+    it takes the padded route, as the reference does."""
+    if log2_strict(evals.shape[0]) < 4:
+        return coset_lde_padded(evals, log_blowup, shift)
+    return _nogather(evals, log_blowup, shift, intt_to_bitrev, ntt_from_bitrev)

@@ -34,6 +34,14 @@ def reverse_bits_len(x: int, bit_len: int) -> int:
     return r
 
 
+def reverse_slice_index_bits(values: list) -> list:
+    """Return a new list permuted by bit-reversing indices (len power of two)."""
+    n = len(values)
+    if n <= 1:
+        return list(values)
+    return [values[int(i)] for i in bitrev_indices(log2_strict(n))]
+
+
 @functools.lru_cache(maxsize=None)
 def bitrev_indices(log_n: int) -> np.ndarray:
     """Bit-reversal permutation indices for size 2**log_n (uint32 numpy)."""

@@ -25,6 +25,10 @@ def enable(flag: bool = True) -> None:
     _enabled = flag
 
 
+def enabled() -> bool:
+    return _enabled
+
+
 def reset() -> None:
     _totals.clear()
     _counts.clear()

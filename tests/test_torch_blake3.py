@@ -180,7 +180,7 @@ def test_sponge_quotient_rows_match_jax_folder():
     rng = np.random.default_rng(42)
     trace, pis, _ = generate_blake3_sponge_trace(_sponge_blocks(4))
     log_n = 8
-    tq = coset_lde_batch(tensor_from_mont_np(np_to_mont(trace)), 1, MULT_GENERATOR)
+    tq = coset_lde_batch(tensor_from_mont_np(np_to_mont(trace), "cpu"), 1, MULT_GENERATOR)
     alpha = _ef(rng)
     td = TwoAdicMultiplicativeCoset(log_n, 1)
     qd = td.create_disjoint_domain(1 << (log_n + 1))
@@ -317,7 +317,7 @@ def test_program_on_host_shim_matches_eager(host_program):
         pis = [F(int(v)) for v in rng.integers(0, P, num_public)]
         alpha = EF4(_ef(rng))
         sels = td.selectors_on_coset(qd, "cpu")
-        want = mont_np_from_tensor(quotient_eager(air, pis, sels, step, tensor_from_mont_np(tq), alpha))
+        want = mont_np_from_tensor(quotient_eager(air, pis, sels, step, tensor_from_mont_np(tq, "cpu"), alpha))
 
         tq_cols = np.ascontiguousarray(tq.T)
         coset = mont_np_from_tensor(coset_tables(log_n, qd.log_n, qd.shift, "cpu")).copy()
@@ -344,7 +344,7 @@ def test_program_on_host_shim_matches_eager(host_program):
                 win_snaps = np.zeros((len(entries), *win_live.shape), np.uint32)
                 lib.host_run_segments(fns, len(entries), ctypes.byref(win_args), grid, block, win_snaps.ctypes.data,
                                       win_live.size)
-                plain = quotient_window_plain(air, pis, td, qd, tensor_from_mont_np(tq[rows_at]), alpha, row0, half)
+                plain = quotient_window_plain(air, pis, td, qd, tensor_from_mont_np(tq[rows_at], "cpu"), alpha, row0, half)
                 np.testing.assert_array_equal(win_out, mont_np_from_tensor(plain), err_msg=f"{type(air).__name__} {row0}")
                 joined.append(win_out)
             np.testing.assert_array_equal(np.concatenate(joined), want, err_msg=type(air).__name__)

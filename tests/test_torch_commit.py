@@ -16,6 +16,7 @@ import torch
 
 from tapstark.commit import BcManager as JBcManager
 from tapstark.commit import device_commit as jdc
+from tapstark.commit import taptree as jtt
 from tapstark.commit.taptree import build_taptree
 from tapstark.commit.tcs import TCS as JTCS
 from tapstark.commit.tcs import FMatrix as JFMatrix
@@ -26,6 +27,7 @@ from tapstark.hashes import sha256_device as jsd
 from tapstark.hashes.sha256 import tapbranch_hash
 from tapstark.utils import bitrev_indices
 from tapstark_torch.commit import BcManager
+from tapstark_torch.commit import taptree as ttt
 from tapstark_torch.commit import device_commit as dc
 from tapstark_torch.commit import tcs
 from tapstark_torch.hashes import sha256_device as sd
@@ -39,7 +41,7 @@ def _words(rng, *shape) -> np.ndarray:
 
 
 def _t(a: np.ndarray) -> torch.Tensor:
-    return tensor_from_mont_np(a)
+    return tensor_from_mont_np(a, "cpu")
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -367,6 +369,129 @@ def test_device_commit_group_split(monkeypatch):
     assert _open_all(split, [0, 31]) == _open_all(whole, [0, 31])
 
 
+def test_sha256_batch_api_matches_jax_and_hashlib():
+    """The word-minor and word-major compressions (a lane shape of two
+    axes, a broadcast state) and `sha256_blocks` against the JAX package's
+    scan path; `sha256_blocks` of padded messages of 0-130 bytes against
+    hashlib; each `*_plain` twin equal."""
+    import hashlib
+
+    rng = np.random.default_rng(31)
+    state, block = _words(rng, 5, 3, 8), _words(rng, 5, 3, 16)
+    want = jsd.compress_batch(jnp.asarray(state), jnp.asarray(block))
+    np.testing.assert_array_equal(_np(sd.compress_batch(_t(state), _t(block))), np.asarray(want))
+    got = sd.compress_batch(_t(state[0, 0]), _t(block))  # one state for every lane
+    every = np.broadcast_to(state[0, 0], state.shape)
+    np.testing.assert_array_equal(_np(got), np.asarray(jsd.compress_batch(jnp.asarray(every), jnp.asarray(block))))
+    state, block = _words(rng, 8, 4, 3), _words(rng, 16, 4, 3)
+    want = jsd.compress_batch_wm(jnp.asarray(state), jnp.asarray(block))
+    np.testing.assert_array_equal(_np(sd.compress_batch_wm(_t(state), _t(block))), np.asarray(want))
+    blocks = _words(rng, 9, 3, 16)
+    want = np.asarray(jsd.sha256_blocks(jnp.asarray(blocks)))
+    np.testing.assert_array_equal(_np(sd.sha256_blocks(_t(blocks))), want)
+    np.testing.assert_array_equal(_np(sd.sha256_blocks_plain(_t(blocks))), want)
+    for size in (0, 55, 56, 64, 130):
+        msg = bytes(rng.integers(0, 256, size, dtype=np.uint8))
+        padded = msg + b"\x80" + b"\0" * ((55 - size) % 64) + (8 * size).to_bytes(8, "big")
+        words = np.frombuffer(padded, ">u4").astype(np.uint32).reshape(1, -1, 16)
+        assert _np(sd.sha256_blocks(_t(words)))[0].astype(">u4").tobytes() == hashlib.sha256(msg).digest()
+
+
+def test_tagged_and_tapbranch_batch_api_match_jax():
+    """`tagged_hash_fixed_batch` (TapLeaf and another tag; 1-3 blocks a
+    lane), `tapbranch_hash_batch` and its word-major form, and
+    `tapbranch_fused_wm` against the JAX package's scan path, pairs equal
+    and sharing prefixes included; each `*_plain` twin equal; a message
+    length other than 4 words a word raises."""
+    rng = np.random.default_rng(32)
+    for tag, w in ((b"TapLeaf", 12), (b"TapLeaf", 3), (b"tapstark/x", 20)):
+        msg = _words(rng, 6, 2, w)
+        want = np.asarray(jsd.tagged_hash_fixed_batch(tag, jnp.asarray(msg), 4 * w))
+        np.testing.assert_array_equal(_np(sd.tagged_hash_fixed_batch(tag, _t(msg), 4 * w)), want)
+        np.testing.assert_array_equal(_np(sd.tagged_hash_fixed_batch_plain(tag, _t(msg), 4 * w)), want)
+    with pytest.raises(ValueError):
+        sd.tagged_hash_fixed_batch(b"TapLeaf", _t(msg), 4 * w + 1)
+    h1, h2 = _words(rng, 11, 8), _words(rng, 11, 8)
+    h2[0] = h1[0]
+    h2[1, :3] = h1[1, :3]
+    h2[2, :7] = h1[2, :7]
+    h2[3, 0] = h1[3, 0] ^ 0x80000000  # differ in the top bit: an unsigned compare
+    want = np.asarray(jsd.tapbranch_hash_batch(jnp.asarray(h1), jnp.asarray(h2)))
+    np.testing.assert_array_equal(_np(sd.tapbranch_hash_batch(_t(h1), _t(h2))), want)
+    np.testing.assert_array_equal(_np(sd.tapbranch_hash_batch_plain(_t(h1), _t(h2))), want)
+    assert _np(sd.tapbranch_hash_batch(_t(h1[3:4]), _t(h2[3:4])))[0].astype(">u4").tobytes() == tapbranch_hash(
+        h1[3].astype(">u4").tobytes(), h2[3].astype(">u4").tobytes())
+    a, b = _words(rng, 8, 4, 3), _words(rng, 8, 4, 3)
+    b[:, 0] = a[:, 0]
+    want = np.asarray(jsd.tapbranch_hash_batch_wm(jnp.asarray(a), jnp.asarray(b)))
+    np.testing.assert_array_equal(_np(sd.tapbranch_hash_batch_wm(_t(a), _t(b))), want)
+    np.testing.assert_array_equal(_np(sd.tapbranch_fused_wm(_t(a), _t(b))), want)
+    np.testing.assert_array_equal(np.asarray(jsd.tapbranch_fused_wm(jnp.asarray(a), jnp.asarray(b))), want)
+
+
+def _scripts(rng, n):
+    return [bytes(rng.integers(0, 256, int(rng.integers(1, 90)), dtype=np.uint8)) for _ in range(n)]
+
+
+def _same_tree(t, j):
+    assert t.root_hash == j.root_hash and t.root_words() == j.root_words()
+    assert t.leaf_indices == j.leaf_indices and t.leaf_count() == j.leaf_count()
+    for i in range(t.leaf_count()):
+        a, b = t.get_tapleaf(i), j.get_tapleaf(i)
+        assert (a.script, a.leaf_hash, a.merkle_branch) == (b.script, b.leaf_hash, b.merkle_branch)
+        assert ttt.verify_inclusion(t.root_hash, a)
+
+
+def test_taptree_builder_matches_jax():
+    """`build_taptree` over 1-16 leaf scripts and `combine_taptrees` both
+    ways and nested against the JAX package's: the same roots, leaf
+    indices and inclusion proofs; `combine_with_order` and `NodeInfo`
+    likewise, and a leaf count other than a power of two raises."""
+    rng = np.random.default_rng(33)
+    trees = {}
+    for n in (1, 2, 8, 16):
+        scripts = _scripts(rng, n)
+        trees[n] = (ttt.build_taptree(scripts), jtt.build_taptree(scripts))
+        _same_tree(*trees[n])
+    for x, y in ((8, 16), (16, 8), (2, 1)):
+        _same_tree(ttt.combine_taptrees(trees[x][0], trees[y][0]), jtt.combine_taptrees(trees[x][1], trees[y][1]))
+    nested = ttt.combine_taptrees(ttt.combine_taptrees(trees[2][0], trees[8][0]), trees[1][0])
+    _same_tree(nested, jtt.combine_taptrees(jtt.combine_taptrees(trees[2][1], trees[8][1]), trees[1][1]))
+    a, b = _scripts(rng, 2)
+    (pt, ft), (pj, fj) = (m.combine_with_order(m.NodeInfo.new_leaf(a), m.NodeInfo.new_leaf(b)) for m in (ttt, jtt))
+    assert (pt.hash, ft, [l.merkle_branch for l in pt.leaves]) == (pj.hash, fj, [l.merkle_branch for l in pj.leaves])
+    with pytest.raises(AssertionError):
+        ttt.build_taptree(_scripts(rng, 3))
+
+
+def test_taptree_root_matches_native_commit():
+    """`build_taptree` over the leaf scripts of a commit (two column shards,
+    two repetitions) against the native engine's roots and openings, and
+    the commit module's other names: `device_commit_will_serve`,
+    `log2_ceil`, `bitrev_rows_dev` and the reference's hash-layer names."""
+    rng = np.random.default_rng(34)
+    a = rng.integers(0, P, (16, 41)).astype(np.uint32)
+    for data in tcs.TCS(BcManager()).commit_poly_with_query_times([tcs.FMatrix(a)], 2):
+        assert len(data.trees) == 2
+        for tree in data.trees:
+            built = ttt.build_taptree([tree._script_fn(i) for i in range(tree.leaf_count())])
+            assert built.root_hash == tree.root_hash and built.root_words() == tree.root_words()
+            for i in (0, 5, 15):
+                got, want = tree.get_tapleaf(i), built.get_tapleaf(i)
+                assert (got.script, got.leaf_hash, got.merkle_branch) == (want.script, want.leaf_hash, want.merkle_branch)
+    assert tcs.device_commit_will_serve(1 << 20, "cpu") and tcs.device_commit_will_serve(4, torch.device("cuda", 0))
+    assert not tcs.device_commit_will_serve(1 << 20, None)
+    assert [tcs.log2_ceil(n) for n in (1, 2, 3, 1000)] == [0, 1, 2, 10]
+    x = _t(_words(rng, 8, 3))
+    want = np.asarray(jdc.bitrev_rows_dev(jnp.asarray(_np(x)), 3))
+    np.testing.assert_array_equal(_np(dc.bitrev_rows_dev(x, 3)), want)
+    with pytest.raises(ValueError):
+        dc.bitrev_rows_dev(x, 2)
+    assert (dc.compress_batch, dc.compress_batch_wm, dc.tapbranch_fused_wm) == (
+        sd.compress_batch, sd.compress_batch_wm, sd.tapbranch_fused_wm)
+    assert dc.sha256(b"abc") == jdc.sha256(b"abc")
+
+
 def test_sha_wrappers_raise_off_cpu_and_cuda():
     x = torch.empty((8, 4), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
@@ -410,6 +535,18 @@ def test_cuda_sha_kernels_match_plain():
             assert torch.equal(sd.tapbranch_levels(level4, top, top), sd.tapbranch_levels_plain(level4, top, top))
             assert sd.launches["tapleaf_subtrees"] == before["tapleaf_subtrees"] + 1
             assert sd.launches["tapbranch_levels"] == before["tapbranch_levels"] + 2
+
+    # the batch API on K5/K6's kernels against its plain versions
+    blocks = _t(_words(rng, 4099, 2, 16)).cuda()
+    msg, h1, h2 = _t(_words(rng, 4099, 12)).cuda(), _t(_words(rng, 4099, 8)).cuda(), _t(_words(rng, 4099, 8)).cuda()
+    h2[::3] = h1[::3]
+    before = dict(sd.launches)
+    assert torch.equal(sd.sha256_blocks(blocks), sd.sha256_blocks_plain(blocks))
+    assert torch.equal(sd.tagged_hash_fixed_batch(b"TapLeaf", msg, 48), sd.tagged_hash_fixed_batch_plain(b"TapLeaf", msg, 48))
+    assert torch.equal(sd.tapbranch_hash_batch(h1, h2), sd.tapbranch_hash_batch_plain(h1, h2))
+    assert torch.equal(sd.tapbranch_fused_wm(h1.T, h2.T), sd.tapbranch_hash_batch_plain(h1, h2).T)
+    assert sd.launches["tapleaf_subtrees"] == before["tapleaf_subtrees"] + 3
+    assert sd.launches["tapbranch_levels"] == before["tapbranch_levels"] + 1
 
     rng = np.random.default_rng(51)
     a = rng.integers(0, P, (1 << 12, 2, 4)).astype(np.uint32)

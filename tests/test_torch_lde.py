@@ -51,7 +51,7 @@ def _lde_matches_jax(log_n):
     x = _evals(log_n, log_n, 4)
     ref = np.asarray(coset_lde_batch_jit(jnp.asarray(x), 2, SHIFT))
     for w in (1, 2, 4):
-        xt = tensor_from_mont_np(x[:, :w])
+        xt = tensor_from_mont_np(x[:, :w], "cpu")
         for log_blowup, rows in ((2, slice(None)), (1, slice(None, None, 2))):
             want = ref[rows, :w]
             np.testing.assert_array_equal(mont_np_from_tensor(coset_lde_batch(xt, log_blowup, SHIFT)), want)
@@ -63,7 +63,7 @@ def _lde_matches_jax(log_n):
     if log_n == 5:
         x = _evals(163, log_n, 163)
         want = np.asarray(coset_lde_batch_jit(jnp.asarray(x), 4, SHIFT))
-        xt = tensor_from_mont_np(x)
+        xt = tensor_from_mont_np(x, "cpu")
         halves = cuda_ntt.lde_forward(cuda_ntt.lde_inverse(xt), 4, SHIFT)
         np.testing.assert_array_equal(mont_np_from_tensor(halves), want)
         np.testing.assert_array_equal(mont_np_from_tensor(coset_lde_batch_auto(xt, 4, SHIFT)), want)
@@ -74,14 +74,14 @@ def test_plain_lde_matches_pallas_fused_interpret(log_n, log_blowup, w):
     """The TPU kernels K1+K2, run in Pallas interpret mode on the CPU."""
     x = _evals(100 + log_n, log_n, w)
     want = np.asarray(coset_lde_batch_pallas_fused(jnp.asarray(x), log_blowup, SHIFT))
-    got = coset_lde_batch(tensor_from_mont_np(x), log_blowup, SHIFT)
+    got = coset_lde_batch(tensor_from_mont_np(x, "cpu"), log_blowup, SHIFT)
     np.testing.assert_array_equal(mont_np_from_tensor(got), want)
 
 
 @pytest.mark.parametrize("log_n", [1, 6])
 def test_ntt_intt_match_jax(log_n):
     x = _evals(200 + log_n, log_n, 3)
-    xt = tensor_from_mont_np(x)
+    xt = tensor_from_mont_np(x, "cpu")
     np.testing.assert_array_equal(mont_np_from_tensor(ntt(xt)), np.asarray(ntt_jit(jnp.asarray(x))))
     np.testing.assert_array_equal(mont_np_from_tensor(intt(xt)), np.asarray(intt_jit(jnp.asarray(x))))
 
@@ -90,7 +90,7 @@ def test_ntt_intt_match_jax(log_n):
 def test_bit_reverse_rows_matches_jax(log_n):
     x = _evals(300 + log_n, log_n, 2)
     np.testing.assert_array_equal(
-        mont_np_from_tensor(bit_reverse_rows(tensor_from_mont_np(x))),
+        mont_np_from_tensor(bit_reverse_rows(tensor_from_mont_np(x, "cpu"))),
         np.asarray(j_bit_reverse_rows(jnp.asarray(x))),
     )
 

@@ -77,8 +77,8 @@ def _host_mod_matmul(lib, x, log_r, inverse, tw=None, width=None):
 
 
 def _plain(x, log_r, inverse, tw=None, width=None):
-    t = None if tw is None else tensor_from_mont_np(tw)
-    return mont_np_from_tensor(mm.mod_matmul_plain(tensor_from_mont_np(x), log_r, inverse, t, width))
+    t = None if tw is None else tensor_from_mont_np(tw, "cpu")
+    return mont_np_from_tensor(mm.mod_matmul_plain(tensor_from_mont_np(x, "cpu"), log_r, inverse, t, width))
 
 
 @pytest.mark.parametrize("log_r", [0, 3, 7])
@@ -142,12 +142,12 @@ def test_mod_matmul_matches_fused_interpret(inverse, host_kernel):
     r = 1 << log_r
     tw = np_to_mont(_canon(2, r, b))
     for x in (_canon(1, r, b), *(np.full((r, b), v, np.uint32) for v in EXTREMES)):
-        xt = tensor_from_mont_np(x)
+        xt = tensor_from_mont_np(x, "cpu")
         for t in (None, tw):
             want = np.asarray(jm.mod_matmul_fused(jnp.asarray(x), log_r, inverse,
                                                   tw=None if t is None else jnp.asarray(t)))
             want_next = want.reshape(r, b // width, width).transpose(1, 0, 2).reshape(b // width, r * width)
-            tt = None if t is None else tensor_from_mont_np(t)
+            tt = None if t is None else tensor_from_mont_np(t, "cpu")
             _same(mm.mod_matmul(xt, log_r, inverse, tw=tt), want)
             _same(mm.mod_matmul(xt, log_r, inverse, tw=tt, width=width), want_next)
             np.testing.assert_array_equal(_host_mod_matmul(host_kernel, x, log_r, inverse, t), want)
@@ -161,13 +161,13 @@ def test_ntt_and_lde_match_jax(log_n):
     `coset_lde_batch_matmul` at 2^min(log_n, 7) against the JAX functions;
     the LDE is also the plain butterfly LDE."""
     x = _canon(3 + log_n, 1 << log_n, 2)
-    xt = tensor_from_mont_np(x)
+    xt = tensor_from_mont_np(x, "cpu")
     for inverse in (False, True):
         _same(mm.ntt_matmul(xt, inverse), jm.ntt_matmul(jnp.asarray(x), inverse))
     evals = np_to_mont(x[: 1 << min(log_n, 7)])
-    got = mm.coset_lde_batch_matmul(tensor_from_mont_np(evals), 2, SHIFT)
+    got = mm.coset_lde_batch_matmul(tensor_from_mont_np(evals, "cpu"), 2, SHIFT)
     _same(got, jm.coset_lde_batch_matmul(jnp.asarray(evals), 2, SHIFT))
-    assert torch.equal(got, coset_lde_batch(tensor_from_mont_np(evals), 2, SHIFT))
+    assert torch.equal(got, coset_lde_batch(tensor_from_mont_np(evals, "cpu"), 2, SHIFT))
 
 
 def test_mod_matmul_raises_off_cpu_and_cuda_and_on_bad_shapes():

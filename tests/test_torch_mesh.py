@@ -68,13 +68,13 @@ def test_distributed_lde_and_sharded_step_match_jax():
     collectives.reset_counts()
     for log_n in (6, 8):
         x = np_to_mont(rng.integers(0, P, (1 << log_n, 3)).astype(np.uint32))
-        y = distributed_ntt(mesh, tensor_from_mont_np(x))
+        y = distributed_ntt(mesh, tensor_from_mont_np(x, "cpu"))
         _same(y, j_distributed_ntt(jmesh, jnp.asarray(x)), f"ntt 2^{log_n}")
         back = distributed_ntt(mesh, y, inverse=True)
         _same(back, x, f"inverse 2^{log_n}")
         _same(back, j_distributed_ntt(jmesh, jnp.asarray(mont_np_from_tensor(y)), inverse=True), f"intt 2^{log_n}")
         for log_blowup in (1, 2):
-            _same(distributed_coset_lde(mesh, tensor_from_mont_np(x), log_blowup, shift),
+            _same(distributed_coset_lde(mesh, tensor_from_mont_np(x, "cpu"), log_blowup, shift),
                   j_distributed_coset_lde(jmesh, jnp.asarray(x), log_blowup, shift), f"lde 2^{log_n} x {log_blowup}")
     # each transform: scatter, all_to_all, gather; a coset LDE two transforms
     assert collectives.counts["exchanges"] == 2 * (3 * 2 + 2 * 6)

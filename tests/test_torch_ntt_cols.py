@@ -103,7 +103,7 @@ def test_cols_match_pallas_interpret(log_r, b, inverse):
     """`dit_cols` against K3 and `dif_cols` against K4, in interpret mode;
     130 lanes is no multiple of the TPU's 128-lane block."""
     x = _mont(10 + log_r, 1 << log_r, b)
-    xt = tensor_from_mont_np(x)
+    xt = tensor_from_mont_np(x, "cpu")
     _same(cols_ntt.dit_cols(xt, log_r, inverse), jp._ntt_cols_pallas(jnp.asarray(x), log_r, inverse))
     _same(cols_ntt.dif_cols(xt, log_r, inverse), jp._dif_cols_pallas(jnp.asarray(x), log_r, inverse))
 
@@ -115,20 +115,47 @@ def test_fourstep_transforms_match_pallas_interpret(log_n):
     folds into its scale table, and the plain last member with its own 1/n
     after `dif_cols` over R, or alone on the one row of R = 1, as
     `lde_inverse` runs it at small sizes) and `ntt_from_bitrev_pallas`
-    (`dit_cols_first` with one block and no shift, then `dit_cols`)."""
+    (`dit_cols_first` with one block and no shift, then `dit_cols`); the
+    public halves `intt_to_bitrev` and `ntt_from_bitrev` and their plain
+    versions against the same."""
     x = _mont(20 + log_n, 1 << log_n, 3)
-    xt, xj = tensor_from_mont_np(x), jnp.asarray(x)
+    xt, xj = tensor_from_mont_np(x, "cpu"), jnp.asarray(x)
     for inverse in (False, True):
         _same(cols_ntt.ntt_cols_fourstep(xt, inverse), jp.ntt_pallas(xj, inverse))
     n_inv = fp_const(pow(1 << log_n, P - 2, P))
     want = jp.intt_to_bitrev_pallas(xj)
-    _same(fp_mul(cols_ntt.intt_to_bitrev_unscaled(xt), n_inv), want)
+    _same(fp_mul(cols_ntt.intt_to_bitrev(xt, n_inv=False), n_inv), want)
     log_r, log_c = cols_ntt.split(log_n)
     a = cols_ntt.dif_cols_plain(xt.reshape(1 << log_r, 3 << log_c), log_r, True)
     _same(cols_ntt.dif_cols_last_plain(a, log_c, n_inv=True), want)
     _same(cols_ntt.dif_cols_last_plain(xt.reshape(1, 3 << log_n), log_n, n_inv=True), want)
     b = cols_ntt.dit_cols_first(xt, 0, 1)
-    _same(cols_ntt.dit_cols(b, cols_ntt.split(log_n)[1], False).reshape(1 << log_n, 3), jp.ntt_from_bitrev_pallas(xj))
+    want = jp.ntt_from_bitrev_pallas(xj)
+    _same(cols_ntt.dit_cols(b, cols_ntt.split(log_n)[1], False).reshape(1 << log_n, 3), want)
+    _same(cols_ntt.ntt_from_bitrev(xt), want)
+    _same(cols_ntt.ntt_from_bitrev_plain(xt), want)
+    want = jp.intt_to_bitrev_pallas(xj)
+    _same(cols_ntt.intt_to_bitrev(xt), want)
+    _same(cols_ntt.intt_to_bitrev_plain(xt), want)
+    np.testing.assert_array_equal(cols_ntt.bitrev_indices_np(log_n), jp.bitrev_indices_np(log_n))
+
+
+def test_nogather_lde_matches_jax():
+    """`coset_lde_nogather` and its plain version against the JAX package's
+    plain LDE at 2^3 (the padded route), 2^4, 2^5 and 2^9 rows, odd and
+    even splits, widths 1-3, blowups 1-4, and against `coset_lde_batch_auto`;
+    at 2^5 rows also against `coset_lde_batch_pallas_nogather` (K3/K4 in
+    interpret mode)."""
+    for log_n, w, log_blowup in [(3, 2, 2), (4, 1, 4), (5, 3, 2), (9, 2, 1)]:
+        x = _mont(90 + log_n, 1 << log_n, w)
+        xt = tensor_from_mont_np(x, "cpu")
+        want = coset_lde_batch_jit(jnp.asarray(x), log_blowup, SHIFT)
+        got = cols_ntt.coset_lde_nogather(xt, log_blowup, SHIFT)
+        _same(got, want)
+        _same(cols_ntt.coset_lde_nogather_plain(xt, log_blowup, SHIFT), want)
+        assert torch.equal(got, coset_lde_batch_auto(xt, log_blowup, SHIFT))
+        if log_n == 5:
+            _same(got, jp.coset_lde_batch_pallas_nogather(jnp.asarray(x), log_blowup, SHIFT))
 
 
 @pytest.mark.parametrize("log_n,cases", [(4, [(2, 1), (4, 2)]), (5, [(2, 2), (4, 1)]), (7, [(2, 1), (4, 2)])])
@@ -139,7 +166,7 @@ def test_blocks_lde_matches_pallas_blocks_interpret(log_n, cases):
     for w, log_blowup in cases:
         x = _mont(30 + log_n + w, 1 << log_n, w)
         want = jp.coset_lde_batch_pallas_blocks(jnp.asarray(x), log_blowup, SHIFT)
-        _same(cols_ntt.coset_lde_blocks(tensor_from_mont_np(x), log_blowup, SHIFT), want)
+        _same(cols_ntt.coset_lde_blocks(tensor_from_mont_np(x, "cpu"), log_blowup, SHIFT), want)
 
 
 def test_first_member_plain_matches_unfused_jax_composition():
@@ -157,7 +184,7 @@ def test_first_member_plain_matches_unfused_jax_composition():
         a = jp._ntt_cols_pallas(m, log_r, inverse=False)
         tw = jnp.asarray(jp._outer_twiddle_brv_cols(log_r, log_c, False))
         want = jnp.swapaxes(j_fp_mul(a.reshape(r, c, width), tw[:, :, None]), 0, 1).reshape(c, r * width)
-        xt = tensor_from_mont_np(x)
+        xt = tensor_from_mont_np(x, "cpu")
         _same(cols_ntt.dit_cols_first(xt, log_blowup, SHIFT), want)
         n_inv = int(np_to_mont(np.array([pow(1 << log_n, P - 2, P)], np.uint32))[0])
         _same(cols_ntt.dit_cols_first(xt, log_blowup, SHIFT, n_inv=True), j_fp_mul(want, jnp.uint32(n_inv)))
@@ -177,7 +204,7 @@ def _emulate_first_member(x, log_r, log_c, log_blowup, n_inv):
     s1, s2 = pair[..., 0], np_from_mont(t["s2"]).astype(np.uint64)
     v = np_from_mont(x).astype(np.uint64).reshape(c, r, 1, w) * s1.T[None, :, :, None] % P  # [p2, p1, rb, c]
     m = np_to_mont(v.astype(np.uint32).transpose(1, 0, 2, 3).reshape(r, c * width))
-    a = np_from_mont(mont_np_from_tensor(cols_ntt.dit_cols_plain(tensor_from_mont_np(m), log_r, False)))
+    a = np_from_mont(mont_np_from_tensor(cols_ntt.dit_cols_plain(tensor_from_mont_np(m, "cpu"), log_r, False)))
     e = (np.arange(r, dtype=np.uint64)[:, None] * bitrev_indices(log_c).astype(np.uint64)[None, :]) % np.uint64(n)
     h = np.uint64(t["h"])
     hi, lo = np_from_mont(t["hi"]).astype(np.uint64), np_from_mont(t["lo"]).astype(np.uint64)
@@ -196,14 +223,14 @@ def test_kernel_tables_reproduce_both_forward_first_members():
     for log_n, w, log_blowup in [(4, 2, 2), (7, 3, 1), (9, 4, 2)]:
         x = _mont(80 + log_n, 1 << log_n, w)
         log_r, log_c = cols_ntt.split(log_n)
-        want = cols_ntt.dit_cols_first(tensor_from_mont_np(x), log_blowup, SHIFT, n_inv=True)
+        want = cols_ntt.dit_cols_first(tensor_from_mont_np(x, "cpu"), log_blowup, SHIFT, n_inv=True)
         _same(want, _emulate_first_member(x, log_r, log_c, log_blowup, True))
     for log_n, w, log_blowup in [(5, 2, 2), (13, 2, 2), (14, 3, 1)]:
         coeffs = _mont(90 + log_n, w, 1 << log_n)
         log_r, log_c = cuda_ntt.forward_split(log_n)
-        b = tensor_from_mont_np(_emulate_first_member(coeffs.T.copy(), log_r, log_c, log_blowup, False))
+        b = tensor_from_mont_np(_emulate_first_member(coeffs.T.copy(), log_r, log_c, log_blowup, False), "cpu")
         got = cols_ntt.dit_cols_plain(b, log_c, False).reshape(-1, w)
-        _same(got, mont_np_from_tensor(cuda_ntt.lde_forward_plain(tensor_from_mont_np(coeffs), log_blowup, SHIFT)))
+        _same(got, mont_np_from_tensor(cuda_ntt.lde_forward_plain(tensor_from_mont_np(coeffs, "cpu"), log_blowup, SHIFT)))
 
 
 def _host_dit_library(tmp_path):
@@ -259,19 +286,19 @@ def test_dit_kernels_on_a_host_shim_match_plain(tmp_path):
     for log_r, b in [(1, 3), (4, 5), (6, 8), (9, 40), (11, 12)]:
         x = _mont(100 + log_r, 1 << log_r, b)
         for inverse in (False, True):
-            _same(cols_ntt.dit_cols_plain(tensor_from_mont_np(x), log_r, inverse), cols(x, log_r, inverse))
+            _same(cols_ntt.dit_cols_plain(tensor_from_mont_np(x, "cpu"), log_r, inverse), cols(x, log_r, inverse))
     for log_n, w, log_blowup, n_inv in [(4, 2, 2, True), (7, 3, 1, False), (12, 2, 2, True)]:
         x = _mont(110 + log_n, 1 << log_n, w)
         log_r, log_c = cols_ntt.split(log_n)
         b = first(x, w, 1, w, log_r, log_c, log_blowup, n_inv)
-        _same(cols_ntt.dit_cols_first_plain(tensor_from_mont_np(x), log_blowup, SHIFT, n_inv), b)
-        _same(cols_ntt.dit_cols_plain(tensor_from_mont_np(b), log_c, False), cols(b, log_c, False))
+        _same(cols_ntt.dit_cols_first_plain(tensor_from_mont_np(x, "cpu"), log_blowup, SHIFT, n_inv), b)
+        _same(cols_ntt.dit_cols_plain(tensor_from_mont_np(b, "cpu"), log_c, False), cols(b, log_c, False))
     for log_n, w, log_blowup in [(3, 2, 2), (12, 2, 2), (13, 3, 1)]:
         coeffs = _mont(120 + log_n, w, 1 << log_n)
         log_r, log_c = cuda_ntt.forward_split(log_n)
         b = first(coeffs, 1, 1 << log_n, w, log_r, log_c, log_blowup, False)
         got = cols(b, log_c, False) if log_c else b
-        want = cuda_ntt.lde_forward_plain(tensor_from_mont_np(coeffs), log_blowup, SHIFT)
+        want = cuda_ntt.lde_forward_plain(tensor_from_mont_np(coeffs, "cpu"), log_blowup, SHIFT)
         _same(want, got.reshape(-1, w))
 
     def dif(x, log_r, inverse, sms=132):
@@ -291,13 +318,13 @@ def test_dit_kernels_on_a_host_shim_match_plain(tmp_path):
     for log_r, b in [(1, 3), (4, 5), (6, 8), (9, 40), (11, 12), (5, 1000)]:
         x = _mont(130 + log_r, 1 << log_r, b)
         for inverse in (False, True):
-            _same(cols_ntt.dif_cols_plain(tensor_from_mont_np(x), log_r, inverse), dif(x, log_r, inverse))
+            _same(cols_ntt.dif_cols_plain(tensor_from_mont_np(x, "cpu"), log_r, inverse), dif(x, log_r, inverse))
     for log_n, w, n_inv in [(4, 2, True), (7, 3, False), (12, 2, True), (13, 5, False)]:
         x = _mont(140 + log_n, 1 << log_n, w)
         log_r, log_c = cols_ntt.split(log_n)
         a = dif(x.reshape(1 << log_r, w << log_c), log_r, True)
-        _same(cols_ntt.dif_cols_plain(tensor_from_mont_np(x.reshape(1 << log_r, -1)), log_r, True), a)
-        want = cols_ntt.dif_cols_last_plain(tensor_from_mont_np(a), log_c, n_inv)
+        _same(cols_ntt.dif_cols_plain(tensor_from_mont_np(x.reshape(1 << log_r, -1), "cpu"), log_r, True), a)
+        want = cols_ntt.dif_cols_last_plain(tensor_from_mont_np(a, "cpu"), log_c, n_inv)
         _same(want, last(a, np.zeros((1 << log_n, w), np.uint32), w, 1, w, log_r, log_c, n_inv))
         _same(want.T, last(a, np.zeros((w, 1 << log_n), np.uint32), 1, 1 << log_n, w, log_r, log_c, n_inv))
     for log_n, w in [(3, 2), (11, 3), (12, 2), (13, 4)]:
@@ -305,7 +332,7 @@ def test_dit_kernels_on_a_host_shim_match_plain(tmp_path):
         log_r, log_c = cuda_ntt.inverse_split(log_n)
         a = dif(x.reshape(1 << log_r, w << log_c), log_r, True) if log_r else x
         got = last(a, np.zeros((w, 1 << log_n), np.uint32), 1, 1 << log_n, w, log_r, log_c, True)
-        _same(cuda_ntt.lde_inverse_plain(tensor_from_mont_np(x)), got)
+        _same(cuda_ntt.lde_inverse_plain(tensor_from_mont_np(x, "cpu")), got)
 
 
 def test_blocks_forward_half_is_the_two_dit_launches(monkeypatch):
@@ -325,7 +352,7 @@ def test_blocks_forward_half_is_the_two_dit_launches(monkeypatch):
 
     for name in ("dif_cols", "dif_cols_last", "dit_cols_first", "dit_cols"):
         monkeypatch.setattr(cols_ntt, name, recorder(name, getattr(cols_ntt, name)))
-    evals = tensor_from_mont_np(_mont(33, 1 << 6, 2))
+    evals = tensor_from_mont_np(_mont(33, 1 << 6, 2), "cpu")
     out = cols_ntt.coset_lde_blocks(evals, 2, SHIFT)
     assert [c[0] for c in calls] == ["dif_cols", "dif_cols_last", "dit_cols_first", "dit_cols"]
     assert calls[0][1].data_ptr() == evals.data_ptr() and calls[0][1].shape == (1 << 3, 2 << 3)
@@ -341,7 +368,7 @@ def test_lde_routes_match_jax(log_n):
     inside `coset_lde_blocks`; log_n 9 goes to the fused halves in
     `coset_lde_batch_auto`."""
     x = _mont(40 + log_n, 1 << log_n, 3)
-    xt = tensor_from_mont_np(x)
+    xt = tensor_from_mont_np(x, "cpu")
     for log_blowup in (1, 2):
         want = np.asarray(coset_lde_batch_jit(jnp.asarray(x), log_blowup, SHIFT))
         _same(cols_ntt.coset_lde_blocks(xt, log_blowup, SHIFT), want)
@@ -400,8 +427,9 @@ def test_cuda_cols_match_plain():
     3000), (14, 5), (9, 4096) (narrowed tiles), then the DIF last member
     over the column form's output at the 2^22 prove's shapes (widths 2 and
     4) and at an odd log_n of width 3, with and without 1/n; the DIT first
-    member at the same shapes; the blocks and padded LDE routes against
-    the fused one. One test, not many cases: see ROADMAP.md on how the
+    member at the same shapes; the blocks, padded and gather-free LDE
+    routes against the plain LDE, and the gather-free route's halves
+    against their plain versions. One test, not many cases: see ROADMAP.md on how the
     suite's item count places the slow pre-port tests in the parallel
     run."""
     dev = _cuda()
@@ -442,9 +470,13 @@ def test_cuda_cols_match_plain():
         assert torch.equal(cols_ntt.dit_cols(b, log_c, False), cols_ntt.dit_cols_plain(b, log_c, False))
         del x, b
 
-    # the blocks and padded routes against the fused one
+    # the blocks, padded and gather-free routes against the plain radix-2 LDE
     for log_n, w, log_blowup in [(3, 2, 2), (5, 3, 1), (12, 2, 2)]:
         x = tensor_from_mont_np(_mont(60 + log_n, 1 << log_n, w), dev)
         want = coset_lde_batch(x, log_blowup, SHIFT)
         assert torch.equal(cols_ntt.coset_lde_blocks(x, log_blowup, SHIFT), want)
         assert torch.equal(cols_ntt.coset_lde_padded(x, log_blowup, SHIFT), want)
+        assert torch.equal(cols_ntt.coset_lde_nogather(x, log_blowup, SHIFT), want)
+        assert torch.equal(cols_ntt.coset_lde_nogather_plain(x, log_blowup, SHIFT), want)
+        assert torch.equal(cols_ntt.intt_to_bitrev(x), cols_ntt.intt_to_bitrev_plain(x))
+        assert torch.equal(cols_ntt.ntt_from_bitrev(x), cols_ntt.ntt_from_bitrev_plain(x))

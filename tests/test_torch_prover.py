@@ -82,7 +82,7 @@ def test_quotient_values_match_jax(air, log_n):
     td = TwoAdicMultiplicativeCoset(log_n, 1)
     got = quotient_values(
         air, [F(v) for v in pis_v], td, td.create_disjoint_domain(1 << (log_n + lqd)),
-        tensor_from_mont_np(tq), EF4(alpha_v),
+        tensor_from_mont_np(tq, "cpu"), EF4(alpha_v),
     )
     _same(got, want)
 
@@ -101,13 +101,13 @@ def test_open_height_reduction_matches_jax():
         _mont(rng, (n,)),  # xs
         _mont(rng, (pts, h, 4)),  # invd
     ]
-    ys, ro = _open_height(*[tensor_from_mont_np(a) for a in args])
+    ys, ro = _open_height(*[tensor_from_mont_np(a, "cpu") for a in args])
     j_ys, j_ro = _open_height_kernel(*[jnp.asarray(a) for a in args])
     _same(ys, j_ys)
     _same(ro, j_ro)
 
     xs, z = _mont(rng, (h,)), _mont(rng, (4,))
-    _same(_inv_denoms(tensor_from_mont_np(xs), tensor_from_mont_np(z)), _inv_denoms_jit(jnp.asarray(xs), jnp.asarray(z)))
+    _same(_inv_denoms(tensor_from_mont_np(xs, "cpu"), tensor_from_mont_np(z, "cpu")), _inv_denoms_jit(jnp.asarray(xs), jnp.asarray(z)))
 
 
 def test_fold_matches_jax():
@@ -116,9 +116,9 @@ def test_fold_matches_jax():
         m = _mont(rng, (1 << log_half, 2, 4))
         beta_v = [int(v) for v in rng.integers(0, P, 4)]
         beta = EF4(beta_v)
-        got = fold_matrix(ef_const(beta, "cpu"), tensor_from_mont_np(m))
+        got = fold_matrix(ef_const(beta, "cpu"), tensor_from_mont_np(m, "cpu"))
         _same(got, fold_matrix_jit(jnp.asarray(np_to_mont(np.array(beta_v, np.uint32))), jnp.asarray(m)))
-        canon = fetch_canonical(tensor_from_mont_np(m))
+        canon = fetch_canonical(tensor_from_mont_np(m, "cpu"))
         np.testing.assert_array_equal(fold_matrix_host(beta, canon), j_fold_matrix_host(JEF4(beta_v), canon))
         np.testing.assert_array_equal(fold_matrix_host(beta, canon), fetch_canonical(got))
 
@@ -179,7 +179,7 @@ def test_transcript_chain_matches_jax_and_host(tmp_path):
                 rng = np.random.default_rng(7 + reps + len(pend))
                 for _ in range(3):
                     words, commitment = _chain_roots(rng, reps)
-                    beta_mont, beta_words = chain.step(tensor_from_mont_np(words))
+                    beta_mont, beta_words = chain.step(tensor_from_mont_np(words, "cpu"))
                     host.observe_commitment(commitment)
                     beta = host.sample()
                     popped = [int(x) for x in mont_np_from_tensor(beta_words)]
@@ -210,11 +210,11 @@ def test_transcript_chain_matches_jax_and_host(tmp_path):
                 cv = rng.integers(0, 2**32, 8, dtype=np.uint64).astype(np.uint32)
                 pend = rng.integers(0, 2**32, k, dtype=np.uint64).astype(np.uint32)
                 level = rng.integers(0, 2**32, (8, reps, 5), dtype=np.uint64).astype(np.uint32)
-                roots = tensor_from_mont_np(level)[:, :, -1].T  # (R, 8), strides (5, 5R)
+                roots = tensor_from_mont_np(level, "cpu")[:, :, -1].T  # (R, 8), strides (5, 5R)
                 out = np.zeros(16, np.uint32)
                 lib.host_transcript_step(cv.ctypes.data, pend.ctypes.data, k, level.ctypes.data + 4 * 4, reps,
                                          roots.stride(0), roots.stride(1), kind, out.ctypes.data)
-                want = dt.transcript_step_plain(tensor_from_mont_np(cv), tensor_from_mont_np(pend), roots, kind)
+                want = dt.transcript_step_plain(tensor_from_mont_np(cv, "cpu"), tensor_from_mont_np(pend, "cpu"), roots, kind)
                 np.testing.assert_array_equal(out, np.concatenate([mont_np_from_tensor(t) for t in want]))
 
 
@@ -239,12 +239,39 @@ def test_interpolation_matches_jax_host_reference():
 
     xs = geom_powers_mont_dev(F.two_adic_generator(log_n).v, log_n, shift, "cpu")
     iw = _interp_weights(xs, ef_const(z, "cpu"))
-    sums = fp_sum_axis0(ef_mul_base(iw[:, None, :], tensor_from_mont_np(np_to_mont(canon))))
+    sums = fp_sum_axis0(ef_mul_base(iw[:, None, :], tensor_from_mont_np(np_to_mont(canon), "cpu")))
     n = 1 << log_n
     s_pow_n = F(shift).exp(n)
     scale = (z.exp(n) - EF4.from_base(s_pow_n)) * EF4.from_base(F(n) * s_pow_n).inverse()
     got = fetch_canonical(ef_mul(sums, ef_const(scale, "cpu")))
     assert [EF4([int(x) for x in row]) for row in got] == want
+
+
+def test_interpolate_coset_matches_jax_and_host(monkeypatch):
+    """`interpolate_coset` against the JAX package's (jitted) at 2^4 rows
+    of 70 columns (past the reference's 64-column chunk) and 2^7 rows of
+    one, and against `interpolate_coset_host` at 2^0 rows of 3 and at the
+    2^4 rows' first 5 columns, exactly, with the step bound at its default
+    and cut so that steps split rows, and columns."""
+    from tapstark.poly.interpolate import interpolate_coset as j_interpolate_coset
+    from tapstark_torch.poly import interpolate
+
+    rng = np.random.default_rng(25)
+    shift = F.generator().v
+    for log_n, w in ((0, 3), (4, 70), (7, 1)):
+        m = _mont(rng, (1 << log_n, w))
+        z = EF4([int(v) for v in rng.integers(0, P, 4)])
+        if log_n:
+            want = np.asarray(j_interpolate_coset(jnp.asarray(m), shift, JEF4(z.as_u32_vec())))
+        for step in (interpolate.STEP_PRODUCTS, 32, 4):
+            monkeypatch.setattr(interpolate, "STEP_PRODUCTS", step)
+            got = interpolate.interpolate_coset(tensor_from_mont_np(m, "cpu"), shift, z)
+            if log_n:
+                _same(got, want)
+        if log_n != 7:
+            rows = [[F(int(v)) for v in row] for row in fetch_canonical(tensor_from_mont_np(m[:, :5], "cpu"))]
+            host = interpolate.interpolate_coset_host(rows, shift, z)
+            assert [e.as_u32_vec() for e in host] == [[int(v) for v in r] for r in fetch_canonical(got[:5])]
 
 
 def _golden_setup():
